@@ -1,0 +1,184 @@
+"""Mapper training loops — rebuild of the reference's train_once_gaussian.
+
+Each iteration: pick a keyframe from the window, render it through a
+*cached binning* (see ops/rasterizer/binning.py), compute the mapper loss,
+pull per-Gaussian (importance, error) scores out of the score-carrier
+gradient, apply the anti-forgetting gradient weighting, and take a masked
+sparse-Adam step on Gaussians that are visible, alive and not stable.
+
+The JAX package runs the iterations as one compiled `lax.fori_loop`; here
+they are a Python loop of eager ops, and the state updates in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops.rasterizer import BinnedScene, bin_for_camera, render
+from .cameras import make_camera
+from .losses import mapper_loss, psnr
+from .state import (GaussianState, SparseAdamState, kill_rows,
+                    sparse_adam_step)
+
+
+class KeyframeBatch(NamedTuple):
+    """Fixed-capacity stack of the tracker's viz_out window (K_CAP slots)."""
+    images: torch.Tensor      # (K, 3, H, W) float32 [0,1]
+    depths: torch.Tensor      # (K, 1, H, W)
+    depths_cov: torch.Tensor  # (K, 1, H, W)
+    w2cs: torch.Tensor        # (K, 4, 4)
+    global_kf_id: torch.Tensor  # (K,) int32
+    n_valid: int              # real keyframes in the stack
+    pixel_mask: Optional[torch.Tensor] = None  # (K, H, W) bool
+
+
+def _select_kf(binned: BinnedScene, kf) -> BinnedScene:
+    return BinnedScene(*(None if x is None else x[kf] for x in binned))
+
+
+def _stack(scenes) -> BinnedScene:
+    return BinnedScene(*(None if xs[0] is None else torch.stack(xs)
+                         for xs in zip(*scenes)))
+
+
+def bin_rows(state: GaussianState, w2cs_rows, intr4, height, width,
+             p_cap=1 << 21, chunk=128, side=5, v_cap=0, tile_cap=0):
+    """Bin a subset of window cameras (stacked BinnedScene) — the
+    incremental half of the round-robin binning cache."""
+    return _stack([bin_for_camera(
+        state.xyz, state.log_scale, state.quat, state.logit_opacity,
+        state.rgb, make_camera(w2c, intr4, height, width), alive=state.alive,
+        p_cap=p_cap, chunk=chunk, side=side, v_cap=v_cap, tile_cap=tile_cap)
+        for w2c in w2cs_rows])
+
+
+def bin_stack(state: GaussianState, batch: KeyframeBatch, intr4, height,
+              width, **bin_kwargs):
+    """Bin every keyframe camera in the window."""
+    return bin_rows(state, batch.w2cs, intr4, height, width, **bin_kwargs)
+
+
+def permute_scatter_binned(full: BinnedScene, perm, part: BinnedScene,
+                           rows) -> BinnedScene:
+    """Shift cached binning rows to their new window positions (window
+    slides), then write freshly-binned rows in."""
+    def one(f, p):
+        if f is None:
+            return None
+        moved = f[perm]
+        moved[rows] = p
+        return moved
+    return BinnedScene(*(one(f, p) for f, p in zip(full, part)))
+
+
+def draw_kf_schedule(generator, iters, n_valid):
+    """Default keyframe draw: one window slot per iteration."""
+    return torch.randint(0, max(n_valid, 1), (iters,),
+                         generator=generator).tolist()
+
+
+def train_loop(state: GaussianState, opt: SparseAdamState,
+               batch: KeyframeBatch, binned_stack: BinnedScene, intr4, *,
+               iters: int, height: int, width: int, kf_schedule,
+               weights=None, lrs=None, render_kwargs=()):
+    """Run `iters` training iterations on the window, updating state and
+    opt in place. kf_schedule lists the window slot each iteration renders
+    (draw_kf_schedule). Returns (state, opt, metrics) with the last
+    iteration's metrics plus `loss_per_iter` and `psnr_per_iter` (iters,).
+    """
+    rkw = dict(render_kwargs)
+    metrics, losses, psnrs = {}, [], []
+    for it in range(iters):
+        kf = int(kf_schedule[it])
+        camera = make_camera(batch.w2cs[kf], intr4, height, width)
+        params = {k: p.detach().requires_grad_()
+                  for k, p in state.params().items()}
+        carrier = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                              device=state.xyz.device, requires_grad=True)
+        rets = render(params["xyz"], params["log_scale"], params["quat"],
+                      params["logit_opacity"], params["rgb"], camera,
+                      alive=state.alive, score_carrier=carrier,
+                      binned=_select_kf(binned_stack, kf), **rkw)
+        pm = None if batch.pixel_mask is None else batch.pixel_mask[kf]
+        total, metrics = mapper_loss(rets, batch.images[kf],
+                                     batch.depths[kf], batch.depths_cov[kf],
+                                     camera, weights, pixel_mask=pm)
+        grads = torch.autograd.grad(total, list(params.values()) + [carrier])
+        with torch.no_grad():
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["psnr"] = psnr(rets["rgb"], batch.images[kf],
+                                   batch.depths[kf][0] > 0)
+            losses.append(metrics["total"])
+            psnrs.append(metrics["psnr"])
+            gp = dict(zip(params, grads[:-1]))
+            cur0, cur1 = grads[-1][:, 0], grads[-1][:, 1]
+            _score_step(state, cur0, cur1, batch.global_kf_id[kf])
+            # anti-forgetting gradient weighting; 1 where no scores flow
+            glob0 = state.global_scores[:, 0]
+            wgt = torch.where(cur0 + glob0 > 0.0,
+                              cur0 / (glob0 + 1e-6 + cur0),
+                              torch.ones_like(cur0))[:, None]
+            gp = {k: g * wgt for k, g in gp.items()}
+            step_mask = rets["visible"] & state.alive & (~state.stable)
+            sparse_adam_step(state, gp, opt, step_mask, lrs)
+    if losses:
+        metrics["loss_per_iter"] = torch.stack(losses)
+        metrics["psnr_per_iter"] = torch.stack(psnrs)
+    return state, opt, metrics
+
+
+def _score_step(state: GaussianState, cur0, cur1, gid_kf):
+    """Score bookkeeping (add_records + keyframe attribution), in place."""
+    state.local_scores.copy_(torch.stack(
+        [state.local_scores[:, 0] + cur0,
+         torch.maximum(state.local_scores[:, 1], cur1)], dim=-1))
+    state.global_scores.copy_(torch.clamp(torch.stack(
+        [state.global_scores[:, 0] + cur0, state.global_scores[:, 1]],
+        dim=-1), 0.0, 1e4))
+    replace = state.globalkf_max_scores < cur0
+    state.globalkf_max_scores.copy_(
+        torch.where(replace, cur0, state.globalkf_max_scores))
+    state.globalkf_id.copy_(torch.where(replace, gid_kf.to(torch.int32),
+                                        state.globalkf_id))
+
+
+@torch.no_grad()
+def stablemask_control(state: GaussianState) -> GaussianState:
+    """Unstable->stable when untouched this round; stable->unstable when the
+    error score spikes; reset local scores. In place."""
+    to_stable = (~state.stable) & (state.local_scores[:, 0] < 1e-4) \
+        & state.alive
+    to_unstable = state.stable & (state.local_scores[:, 1] > 0.3) & \
+        (state.local_scores[:, 0] > 0.05)
+    state.stable.copy_((state.stable | to_stable) & ~to_unstable)
+    state.local_scores.zero_()
+    return state
+
+
+def storage_control(state: GaussianState, batch: KeyframeBatch,
+                    binned_stack: BinnedScene, intr4, *, height: int,
+                    width: int, render_kwargs=()):
+    """Every few keyframes: re-render the window, accumulate plain-L1
+    importance scores, prune mid-importance unstable Gaussians. In place;
+    returns (state, n_pruned)."""
+    rkw = dict(render_kwargs)
+    imp = torch.zeros((state.capacity,), dtype=torch.float32,
+                      device=state.xyz.device)
+    for kf in range(batch.n_valid):
+        camera = make_camera(batch.w2cs[kf], intr4, height, width)
+        carrier = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                              device=state.xyz.device, requires_grad=True)
+        rets = render(state.xyz, state.log_scale, state.quat,
+                      state.logit_opacity, state.rgb, camera,
+                      alive=state.alive, score_carrier=carrier,
+                      binned=_select_kf(binned_stack, kf), **rkw)
+        gt = batch.images[kf]
+        m = (torch.sum(gt, dim=0) > 0).to(torch.float32)
+        loss = torch.sum(torch.abs(rets["rgb"] - gt) * m[None]) / \
+            torch.clamp(torch.sum(m) * 3.0, min=1.0)
+        imp += torch.autograd.grad(loss, carrier)[0][:, 0]
+    prune = (imp > 0.05) & (imp < 0.8) & (~state.stable) & state.alive
+    kill_rows(state, prune)
+    return state, torch.sum(prune.to(torch.int32))
