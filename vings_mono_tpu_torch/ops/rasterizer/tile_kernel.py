@@ -20,6 +20,25 @@ of the JAX package:
   outside the kernel). It emits per-pair gradients of the 21 packed fields
   plus the importance (sum w) and error (sum w |g_rgb|) scores.
 
+What bounds them on the H100, and what the kernels do about it: the work
+that cannot be avoided (the covered (pair, pixel) evaluations, the blended
+chunks' pair data, the images, the gradient rows) is tens of microseconds;
+the rest is instruction slots. Most evaluations of a chunk hit nothing, so
+each kernel first culls: one thread per pair computes the ellipse and the
+disc outside which alpha is exactly 0 (`pair_pixel_bounds` and
+`pair_block_mask` are the same formulas in PyTorch), each warp, an 8x4
+block of pixels, keeps only the pairs that reach it (ballot, in order) and
+blends those. A culled pair has alpha = 0 at every pixel of the warp, so
+the result is the unculled one.
+The backward sums a pair's 23 rows over a warp with a transposing
+butterfly (24 shuffles instead of 115) and over the eight warps in a fixed
+order through shared memory, so two launches give bitwise equal gradients.
+Chunks are staged with `cp.async` copies, the next chunk in flight while
+the current one is blended, and transposed on the way to [pair][field], so
+that a warp reads a pair in 16-byte broadcasts. The coverage rounds as the
+plain twin's does, operation by operation: alpha steps from 0 to 1/255 at
+its threshold, and the twins are held to 1e-4.
+
 Each wrapper runs its plain PyTorch twin for a tensor on the CPU and the
 CUDA kernel for a tensor on a GPU; there is no fallback from one to the
 other. Each wrapper counts its kernel launches in its `launches` attribute.
@@ -66,15 +85,16 @@ GR_PAD = PK_PAD            # 24 rows: grads for the 21 used packed fields
 GR_SCORE_IMP = 21          # extra: sum_pix w   (importance score)
 GR_SCORE_ERR = 22          # extra: sum_pix w * |g_rgb| (error score)
 
-# f32 operations per (pair, pixel) in csrc/rasterizer.cu (an FMA counts two,
-# exp, divide, compare and select one each): the coverage runs for every
-# pair of a blended chunk at every pixel of the tile, the rest only where
-# the pair covers the pixel (alpha > 0). The backward's count takes the
-# 23-row reduction over pixels as one add per row, not the butterfly's
-# five. These set the operation bound chip_smoke.py reports.
-OPS_COVERAGE = 39
-OPS_FWD_HIT = 26
-OPS_BWD_HIT = 99
+# f32 operations per covered (pair, pixel) in csrc/rasterizer.cu (an FMA
+# counts two; exp, reciprocal, compare, min and select one each): the
+# coverage, then what the forward adds for a covered pixel (weights, 11
+# accumulations, the transmittance), or the backward (gw, the suffix-sum
+# identity, 23 contributions, one add per row for the sum over pixels).
+# Evaluations that cover nothing are work a kernel can avoid, so the bound
+# chip_smoke.py reports counts the covered ones only.
+OPS_COVERAGE = 37
+OPS_FWD_HIT = 29
+OPS_BWD_HIT = 114
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +117,124 @@ def _pixel_rays(tiles, ntx, meta):
     return qx[:, None], qy[:, None], px[:, None], py[:, None]
 
 
-def _coverage(d, qx, qy, px, py):
+# the cull widens what it tests by this many pixels against rounding
+CULL_MARGIN = 0.5
+
+
+def _cull_terms(pair_data, meta):
+    """What the cull of csrc/rasterizer.cu (`warp_mask`) computes per pair,
+    in PyTorch. pair_data (PK_PAD, ...) f32, meta the kernels' camera block.
+
+    alpha > 0 needs opac * exp(-rho / 2) >= 1/255, that is rho <= r2 =
+    2 ln(255 opac), with rho = min(rho3d, rho2d): the union of the disc
+    rho2d = 2 |p - c2|^2 <= r2 and the conic rho3d <= r2, d^T Q d <= 0 for
+    d = (qx, qy, 1) and Q = M^T diag(1, 1, -r2) M, M's rows w_u, w_v, n.
+    With adj(M) = [A B C] = [w_v x n, n x w_u, w_u x w_v] and D = C_z^2 -
+    r2 (A_z^2 + B_z^2) the conic is the ellipse (q - e)^T Q_xy (q - e) <=
+    r2 det(M)^2 / D about e = (C_x C_z - r2 (A_x A_z + B_x B_z)) / D (and
+    y alike), with half width sqrt(r2 Q_yy) |det M| / D. It is used only
+    where Q is a well-conditioned ellipse clear of the camera plane
+    (`ok`); everywhere else the pair is not culled.
+
+    Returns covers (opac reaches the threshold at all), ok, the disc's and
+    the conic's rectangles (x0, x1, y0, y1, pixels, not widened) and the
+    ellipse in pixels (ex, ey, S00, S01, S11, K): S(p - e) <= K."""
+    opac = pair_data[PK_OPAC]
+    r2 = 2.0 * torch.log(255.0 * opac.clamp(min=ALPHA_EPS))
+    r2 = r2.clamp(min=0.0) * (1.0 + 1e-5) + 1e-5
+    rad = torch.sqrt(0.5 * r2)
+    c2x, c2y = pair_data[PK_C2X], pair_data[PK_C2Y]
+    wu, wv, n = pair_data[PK_WU], pair_data[PK_WV], pair_data[PK_N]
+    A = torch.linalg.cross(wv, n, dim=0)
+    B = torch.linalg.cross(n, wu, dim=0)
+    C = torch.linalg.cross(wu, wv, dim=0)
+    det = (wu * A).sum(0)
+    uu, vv, nn = (wu * wu).sum(0), (wv * wv).sum(0), (n * n).sum(0)
+    D = C[2] * C[2] - r2 * (A[2] * A[2] + B[2] * B[2])
+    Q00 = wu[0] * wu[0] + wv[0] * wv[0] - r2 * n[0] * n[0]
+    Q01 = wu[0] * wu[1] + wv[0] * wv[1] - r2 * n[0] * n[1]
+    Q11 = wu[1] * wu[1] + wv[1] * wv[1] - r2 * n[1] * n[1]
+    ok = ((det * det > 1e-8 * uu * vv * nn) & (nn > 1e-16)
+          & (D > 0.01 * C[2] * C[2]) & (Q00 > 0) & (Q11 > 0))
+    inv_D = 1.0 / D
+    qcx = (C[0] * C[2] - r2 * (A[0] * A[2] + B[0] * B[2])) * inv_D
+    qcy = (C[1] * C[2] - r2 * (A[1] * A[2] + B[1] * B[2])) * inv_D
+    k = det.abs() * inv_D * (1.0 + 1e-3)
+    hx = torch.sqrt(r2 * Q11) * k
+    hy = torch.sqrt(r2 * Q00) * k
+    fx, fy, cx, cy = meta[0], meta[1], meta[2], meta[3]
+    disc = (c2x - rad, c2x + rad, c2y - rad, c2y + rad)
+    box = (fx * (qcx - hx) + cx, fx * (qcx + hx) + cx,
+           fy * (qcy - hy) + cy, fy * (qcy + hy) + cy)
+    for b in disc + box:
+        ok = ok & (b.abs() < 1e30)      # also false for NaN
+    ellipse = (fx * qcx + cx, fy * qcy + cy, Q00 / (fx * fx),
+               Q01 / (fx * fy), Q11 / (fy * fy),
+               r2 * det * det * inv_D * (1.0 + 2e-3))
+    covers = opac >= ALPHA_EPS          # a_raw = opac * expval <= opac
+    return covers, ok, disc, box, ellipse
+
+
+def pair_pixel_bounds(pair_data, meta):
+    """Per pair a pixel rectangle x0 <= px <= x1, y0 <= py <= y1 outside
+    which `_coverage` gives alpha = 0: the disc's and the conic's
+    rectangles of `_cull_terms` joined and widened by CULL_MARGIN. Returns
+    (x0, x1, y0, y1), each of pair_data's trailing shape; (-inf, inf, -inf,
+    inf) where the pair is not culled, (inf, -inf, inf, -inf) where it
+    covers nothing."""
+    covers, ok, disc, box, _ = _cull_terms(pair_data, meta)
+    inf = torch.full_like(disc[0], float("inf"))
+    out = []
+    for i, sign in enumerate((-1.0, 1.0, -1.0, 1.0)):
+        b = torch.minimum(disc[i], box[i]) if sign < 0 else torch.maximum(
+            disc[i], box[i])
+        b = torch.where(ok, b + sign * CULL_MARGIN, sign * inf)
+        out.append(torch.where(covers, b, -sign * inf))
+    return tuple(out)
+
+
+def pair_block_mask(pair_data, meta, x_lo, x_hi, y_lo, y_hi):
+    """Whether a pair can cover any pixel of the block x_lo <= px <= x_hi,
+    y_lo <= py <= y_hi (tensors that broadcast against pair_data's trailing
+    shape): the kernels' cull, `warp_mask`'s bit for a warp's 8x4 block.
+    The block, widened by CULL_MARGIN, must meet the disc's rectangle, or
+    the conic's rectangle and the ellipse itself: the least value of the
+    convex form S(p - e) over the block is 0 if the block holds e, else it
+    lies on one of the four edges. A NaN anywhere leaves the pair in."""
+    covers, ok, disc, box, (ex, ey, S00, S01, S11, K) = _cull_terms(
+        pair_data, meta)
+    X0, X1 = x_lo - CULL_MARGIN, x_hi + CULL_MARGIN
+    Y0, Y1 = y_lo - CULL_MARGIN, y_hi + CULL_MARGIN
+
+    def meets(r):
+        return (r[0] <= X1) & (r[1] >= X0) & (r[2] <= Y1) & (r[3] >= Y0)
+
+    dx0, dx1, dy0, dy1 = X0 - ex, X1 - ex, Y0 - ey, Y1 - ey
+    ky, kx = -S01 / S11, -S01 / S00
+
+    def edge_x(dx):
+        y = torch.minimum(torch.maximum(ky * dx, dy0), dy1)
+        return S00 * dx * dx + 2.0 * S01 * dx * y + S11 * y * y
+
+    def edge_y(dy):
+        x = torch.minimum(torch.maximum(kx * dy, dx0), dx1)
+        return S00 * x * x + 2.0 * S01 * x * dy + S11 * dy * dy
+
+    least = torch.minimum(torch.minimum(edge_x(dx0), edge_x(dx1)),
+                          torch.minimum(edge_y(dy0), edge_y(dy1)))
+    holds_e = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    least = torch.where(holds_e, torch.zeros_like(least), least)
+    return covers & (~ok | meets(disc) | (meets(box) & ~(least > K)))
+
+
+def _coverage(d, qx, qy, px, py, meta=None):
     """alpha and z for chunks of pairs x 256 pixels.
 
     d (n, G, PK_PAD) pair-major; q*/p* (n, 1, PIX). Returns alpha, z
-    (n, G, PIX) and the backward intermediates."""
+    (n, G, PIX) and the backward intermediates. With meta, alpha is also
+    zeroed where `pair_block_mask` keeps the pair out of the pixel's 8x4
+    block, as the kernels' cull does; that changes nothing if the cull is
+    right."""
     def col(i):
         return d[..., i:i + 1]
 
@@ -128,6 +261,13 @@ def _coverage(d, qx, qy, px, py):
     alpha = torch.where(keep, torch.clamp(a_raw, max=MAX_ALPHA),
                         torch.zeros_like(a_raw))
     live = keep & (a_raw < MAX_ALPHA)
+    if meta is not None:
+        # the pixel's 8x4 block, as the kernels lay warps over a tile
+        bx, by = torch.floor(px / 8.0) * 8.0, torch.floor(py / 4.0) * 4.0
+        inside = pair_block_mask(d.movedim(-1, 0)[..., None], meta, bx,
+                                 bx + 7.0, by, by + 3.0)
+        alpha = torch.where(inside, alpha, torch.zeros_like(alpha))
+        live = live & inside
     return alpha, z, (u, v, rcp, expval, sel3, live, dx, dy)
 
 
@@ -175,21 +315,32 @@ class _ChunkSteps:
             yield idx, c, d, rays
 
 
-def forward_plain(pair_data, tile_chunks, meta, chunk):
+def forward_plain(pair_data, tile_chunks, meta, chunk, cull=False,
+                  near_rel=None):
     """Plain twin of the forward kernel. Returns (out, evals, hits): out is
     (T, CH_PAD, PIX), evals the (pair, pixel) coverage evaluations of the
     chunks blended before early termination and hits () the covered ones
-    (alpha > 0) — the data-dependent work behind the kernels' bound."""
+    (alpha > 0) — the data-dependent work behind the kernels' bound. With
+    cull, alpha is zeroed where `pair_block_mask` is off first. With near_rel,
+    a fourth value counts the evaluations that sit within that relative
+    distance of a coverage threshold (opac * expval at ALPHA_EPS, z at
+    MIN_HIT_Z), where another rounding of exp or 1/x may decide otherwise."""
     T = tile_chunks.shape[0] - 1
     out = torch.zeros((T, CH_PAD, PIX), dtype=torch.float32,
                       device=pair_data.device)
     steps = _ChunkSteps(pair_data, tile_chunks, meta, chunk)
     evals, hits = 0, torch.zeros((), dtype=torch.int64,
                                  device=pair_data.device)
+    near = torch.zeros_like(hits)
     for idx, _, d, (qx, qy, px, py) in steps:
-        alpha, z, _ = _coverage(d, qx, qy, px, py)
+        alpha, z, rest = _coverage(d, qx, qy, px, py, meta if cull else None)
         evals += alpha.numel()
         hits += torch.count_nonzero(alpha)
+        if near_rel is not None:
+            a_raw = d[..., PK_OPAC:PK_OPAC + 1] * rest[3]
+            near += torch.count_nonzero(
+                ((a_raw - ALPHA_EPS).abs() <= near_rel * ALPHA_EPS)
+                | ((z - MIN_HIT_Z).abs() <= near_rel * MIN_HIT_Z))
         T_excl, T_prod = _excl_cumprod(1.0 - alpha)
         w = alpha * T_excl * steps.carry[idx]             # (n, G, PIX)
         md = _md(z, alpha)
@@ -212,12 +363,15 @@ def forward_plain(pair_data, tile_chunks, meta, chunk):
         ], dim=1)
         out[idx] += acc
         steps.carry[idx] = steps.carry[idx] * T_prod
+    if near_rel is not None:
+        return out, evals, hits, near
     return out, evals, hits
 
 
 def backward_plain(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
-                   out_dtype=torch.float32):
-    """Plain twin of the backward kernel: (GR_PAD, P_CAP) per-pair grads."""
+                   out_dtype=torch.float32, cull=False):
+    """Plain twin of the backward kernel: (GR_PAD, P_CAP) per-pair grads.
+    With cull, alpha is zeroed where `pair_block_mask` is off first."""
     dev = pair_data.device
     grads = torch.zeros((GR_PAD, pair_data.shape[1]), dtype=torch.float32,
                         device=dev)
@@ -229,7 +383,7 @@ def backward_plain(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
     for idx, c, d, (qx, qy, px, py) in steps:
         g = g_out[idx]                                    # (n, CH_PAD, PIX)
         alpha, z, (u, v, rcp, expval, sel3, live, ddx, ddy) = _coverage(
-            d, qx, qy, px, py)
+            d, qx, qy, px, py, meta if cull else None)
         T_excl, T_prod = _excl_cumprod(1.0 - alpha)
         T_run = T_excl * steps.carry[idx]
         w = alpha * T_run
@@ -297,10 +451,15 @@ def backward_plain(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
+# csrc/rasterizer.cu built so that every warp visits every pair: what the
+# kernels' cull is checked against
+NO_CULL = ("VM_CULL=0",)
+
+
 @functools.lru_cache(maxsize=None)
-def _library():
+def _library(cull=True):
     from ...utils import cuda_build
-    lib = cuda_build.load("rasterizer")
+    lib = cuda_build.load("rasterizer", () if cull else NO_CULL)
     _declare(lib)
     return lib
 
@@ -329,6 +488,9 @@ def _check_common(pair_data, tile_chunks, meta, chunk):
         raise ValueError("tile_chunks must be 1-D (T+1,)")
     _check(tile_chunks, "tile_chunks", torch.int32, tile_chunks.shape, dev)
     _check(meta, "meta", _F32, (8,), dev)
+    # the kernels stage a chunk 8 pairs x 4 fields at a time
+    if chunk % 8:
+        raise ValueError(f"chunk {chunk} is not a multiple of 8")
     return dev, p_cap, tile_chunks.shape[0] - 1
 
 
@@ -338,21 +500,32 @@ def _raise_on(lib, err, what):
                            f"{lib.vm_cuda_error_string(err).decode()}")
 
 
-def rasterize_forward(pair_data, tile_chunks, meta, chunk):
+def rasterize_forward(pair_data, tile_chunks, meta, chunk, counters=None,
+                      cull=True):
     """pair_data (PK_PAD, P_CAP) f32 tile-grouped; tile_chunks (T+1,) int32
     chunk runs; meta f32 (8,) = [fx, fy, cx, cy, ntx, 0, 0, 0].
-    Returns (T, CH_PAD, PIX) f32."""
+    Returns (T, CH_PAD, PIX) f32.
+
+    counters, for checks only and only on a GPU: a zeroed int64 (3,) tensor
+    to which the kernel adds the covered (pair, pixel) evaluations, the
+    (pair, warp) visits its cull left and the (pair, warp) visits of the
+    blended chunks without a cull. cull=False, likewise, launches the
+    kernel built without its cull, which must give the same bits."""
     if pair_data.device.type == "cpu":
+        if counters is not None or not cull:
+            raise ValueError("counters and cull are the CUDA kernel's")
         return forward_plain(pair_data, tile_chunks, meta, chunk)[0]
     dev, p_cap, T = _check_common(pair_data, tile_chunks, meta, chunk)
+    if counters is not None:
+        _check(counters, "counters", torch.int64, (3,), dev)
     out = torch.empty((T, CH_PAD, PIX), dtype=_F32, device=dev)
     if T == 0:
         return out
-    lib = _library()
+    lib = _library(cull)
     err = lib.vm_raster_forward(
         pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), T, p_cap, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if counters is None else counters.data_ptr(),
+        T, p_cap, chunk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rasterize_forward launch")
     rasterize_forward.launches += 1
     return out
@@ -362,11 +535,15 @@ rasterize_forward.launches = 0
 
 
 def rasterize_backward(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
-                       out_dtype=torch.float32):
+                       out_dtype=torch.float32, cull=True):
     """Per-pair grads (GR_PAD, P_CAP) in out_dtype (float32 or bfloat16;
     bf16 halves the write and the pair->Gaussian gather, the per-pair math
-    stays f32). out_saved, g_out (T, CH_PAD, PIX) f32."""
+    stays f32). out_saved, g_out (T, CH_PAD, PIX) f32. cull=False, for
+    checks only and only on a GPU, launches the kernel built without its
+    cull."""
     if pair_data.device.type == "cpu":
+        if not cull:
+            raise ValueError("cull is the CUDA kernel's")
         return backward_plain(pair_data, tile_chunks, meta, chunk,
                               out_saved, g_out, out_dtype)
     dev, p_cap, T = _check_common(pair_data, tile_chunks, meta, chunk)
@@ -379,7 +556,7 @@ def rasterize_backward(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
     grads = torch.zeros((GR_PAD, p_cap), dtype=out_dtype, device=dev)
     if T == 0:
         return grads
-    lib = _library()
+    lib = _library(cull)
     err = lib.vm_raster_backward(
         pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
         out_saved.data_ptr(), g_out.data_ptr(), grads.data_ptr(),
@@ -393,10 +570,32 @@ def rasterize_backward(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
 rasterize_backward.launches = 0
 
 
+def kernel_attributes(chunk):
+    """{kernel: {"registers", "blocks_per_sm", "smem_bytes"}} of the built
+    kernels at this chunk size: registers per thread, resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and dynamic shared
+    memory per block. Needs a GPU."""
+    lib = _library()
+    out = {}
+    for which, name in enumerate(("rasterize_forward",
+                                  "rasterize_backward_f32",
+                                  "rasterize_backward_bf16")):
+        regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.vm_raster_attributes(which, chunk, ctypes.byref(regs),
+                                       ctypes.byref(blocks),
+                                       ctypes.byref(smem))
+        _raise_on(lib, err, f"{name} attributes")
+        out[name] = {"registers": regs.value, "blocks_per_sm": blocks.value,
+                     "smem_bytes": smem.value}
+    return out
+
+
 def _declare(lib):
     """ctypes signatures of csrc/rasterizer.cu's C interface."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vm_raster_forward.argtypes = [P, P, P, P, I, I, I, P]
+    lib.vm_raster_attributes.argtypes = [I, I, P, P, P]
+    lib.vm_raster_attributes.restype = I
+    lib.vm_raster_forward.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.vm_raster_forward.restype = I
     lib.vm_raster_backward.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     lib.vm_raster_backward.restype = I

@@ -3,8 +3,10 @@
 Each source compiles with nvcc for sm_90a into its own shared library with
 a plain C interface, loaded with ctypes. Libraries go to
 `build/torch_kernels/` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-at once. Nothing is compiled at import time.
+sources, flags and macro definitions, so an edited source rebuilds and an
+unchanged one loads at once. Nothing is compiled at import time. `defines`
+("NAME=VALUE" strings) builds a source with macros set, into a library of
+its own.
 """
 
 from __future__ import annotations
@@ -39,16 +41,16 @@ def sources():
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name):
+def library_path(name, defines=()):
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None):
+def build(names=None, defines=()):
     """Compile every named source (default: all) whose library is missing,
     one nvcc process per source, all started together. Returns
     {name: (library path, seconds, ptxas report)}; raises on a failed
@@ -57,12 +59,13 @@ def build(names=None):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo, done = {}, {}
     for name in names:
-        lib = library_path(name)
+        lib = library_path(name, defines)
         if lib.is_file():
             done[name] = (lib, 0.0, "")
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         todo[name] = (proc, tmp, lib, time.perf_counter())
@@ -82,7 +85,7 @@ def build(names=None):
 
 
 @functools.lru_cache(maxsize=None)
-def load(name):
+def load(name, defines=()):
     """ctypes handle of csrc/<name>.cu's library, built on first use."""
-    lib, _, _ = build([name])[name]
+    lib, _, _ = build([name], defines)[name]
     return ctypes.CDLL(str(lib))
