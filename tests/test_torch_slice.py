@@ -138,12 +138,35 @@ def test_run_mapping_replays_windows(tmp_path):
     assert mapper.n_alive == records[-1]["n_alive"] > 300
 
 
-def test_entry_points_default_to_cuda():
-    cfg = load_config(overrides=OVERRIDES)
+def test_entry_points_default_to_cuda(tmp_path):
+    """Mapper, tracker and both runners resolve to CUDA unless the caller
+    names a device, and raise without one rather than run on the CPU."""
+    from vings_mono_tpu_torch.runners import run as run_vo
+    from vings_mono_tpu_torch.tracker.tracker import Tracker
+    from vings_mono_tpu_torch.utils.device import resolve_device
+    cfg = load_config(overrides={
+        **OVERRIDES, "dataset": {"module": "synthetic", "n_frames": 2},
+        "frontend": {"image_size": [32, 32], "buffer": 12, "ba_window": 8},
+        "output": {"save_dir": str(tmp_path)}})
     assert cfg["device"]["mapper"] == "cuda"
+    assert cfg["device"]["tracker"] == "cuda"
+    assert resolve_device("cpu").type == "cpu"
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            GaussianMapper(cfg)
+        (tmp_path / "cfg.yaml").write_text(
+            "dataset: {module: synthetic, n_frames: 2}\n"
+            "frontend: {image_size: [32, 32], buffer: 12, ba_window: 8}\n"
+            f"output: {{save_dir: {tmp_path}}}\n")
+        for entry in (lambda: GaussianMapper(cfg),
+                      lambda: Tracker(cfg, 32, 32),
+                      lambda: resolve_device(None),
+                      lambda: run_vo.build(cfg),
+                      lambda: run_vo.run(cfg, str(tmp_path / "run")),
+                      lambda: run_vo.main([str(tmp_path / "cfg.yaml")]),
+                      lambda: run_mapping.run(
+                          {**cfg, "dataset": {"root": str(tmp_path)}},
+                          str(tmp_path / "run"))):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                entry()
 
 
 def _imports(path):
@@ -158,7 +181,20 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "vings_mono_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    files.append(ROOT / "tests" / "test_torch_cuda.py")
+    assert len(files) > 40
+    names = {str(f.relative_to(ROOT / "vings_mono_tpu_torch"))
+             for f in files[:-2]}
+    for mod in ("ops/lie.py", "ops/quat_wxyz.py", "ops/projective.py",
+                "ops/corr.py", "ops/upsample.py", "ops/ba.py",
+                "models/droid_net.py", "tracker/video.py",
+                "tracker/graph.py", "tracker/motion_filter.py",
+                "tracker/frontend.py", "tracker/tracker.py",
+                "middleware.py", "utils/trajectory.py",
+                "utils/profiling.py", "utils/device.py",
+                "datasets/base.py", "datasets/synthetic.py",
+                "datasets/synthetic3d.py", "runners/run.py"):
+        assert mod in names, mod
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

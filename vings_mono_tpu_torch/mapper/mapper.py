@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..utils import ply as ply_io
+from ..utils.device import resolve_device
 from .cameras import camera_from_intrinsic
 from .densify import add_frame, draw_densify
 from .state import (STATE_FIELDS, adam_init, empty_state, state_from_numpy,
@@ -29,16 +30,6 @@ def _intr4(intr: dict):
     """Reference intrinsic dict -> (fx, fy, cx, cy) (fu/cu are row-major)."""
     return (float(intr["fv"]), float(intr["fu"]), float(intr["cv"]),
             float(intr["cu"]))
-
-
-def resolve_device(device):
-    """torch.device for an entry point; CUDA unless the caller asks for
-    another device, and an error when CUDA is asked for but absent."""
-    device = torch.device(device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
 
 
 class GaussianMapper:
@@ -173,6 +164,11 @@ class GaussianMapper:
 
     # ---- packing -----------------------------------------------------
     def _tensor(self, x, dtype=torch.float32):
+        """x on the mapper's device as `dtype`; a tensor is moved and cast
+        where it lies (no trip through the host), anything else goes
+        through numpy."""
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(device=self.device, dtype=dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
 
@@ -188,7 +184,9 @@ class GaussianMapper:
         imgs = self._tensor(viz_out["images"]).movedim(-1, 1)  # (K,3,H,W)
         depths = self._tensor(viz_out["depths"]).movedim(-1, 1)
         covs = self._tensor(viz_out["depths_cov"]).movedim(-1, 1)
-        w2cs = torch.linalg.inv(self._tensor(viz_out["poses"]))
+        # inv_ex: the same inverse without inv's error check, which waits
+        # for the device
+        w2cs = torch.linalg.inv_ex(self._tensor(viz_out["poses"])).inverse
         ids = self._tensor(viz_out["global_kf_id"], torch.int32)
         pm = None if pm is None else self._tensor(pm, torch.bool)
         if imgs.shape[0] > kc:

@@ -1,0 +1,263 @@
+"""Dense bundle adjustment on torch tensors (DROID's `droid_backends.ba`).
+
+Gauss-Newton over keyframe poses + per-pixel inverse depths:
+  * per-edge Jacobians from ops.projective (analytic),
+  * block Hessian assembled with `index_add_` over the edge list,
+  * per-pixel depth blocks marginalized by a Schur complement (C is
+    diagonal over pixels), damped pose system solved with Cholesky,
+  * left-multiplicative SE3 retraction + disparity update.
+
+An edge whose `edge_valid` is False contributes nothing, so callers may pass
+only their live edges or a padded list: the results are equal.
+
+The routine also exposes the two half-steps an inertial fusion needs:
+`ba_hessian` returns the depth-marginalized pose Hessian/rhs (camera frame),
+and `ba_retract` applies an externally solved pose delta and solves depths.
+The full-trajectory variants (edge-sparse and banded global BA) are not
+ported yet.
+
+Every product here must run in true f32: the callers keep TF32 matmuls off
+(utils.device.f32_matmul).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import lie
+from . import projective as pops
+
+
+def _scatter_rows(vals, idx, n):
+    """vals (N, ...) summed into (n, ...) by idx (N,); idx == n discards."""
+    out = vals.new_zeros((n + 1,) + vals.shape[1:])
+    return out.index_add_(0, idx, vals)[:-1]
+
+
+def build_system(target, weight, eta, poses, disps, intrinsics, ii, jj,
+                 edge_valid, fixedp=1, m_frames=None):
+    """Assemble the BA normal equations.
+
+    target/weight (N, 2, H, W) [DROID layout], eta (M, H, W) damping,
+    poses (P, 7) w2c, disps (P, H, W), ii/jj (N,) integer, edge_valid (N,).
+    Depth blocks are indexed by source frame directly (M = P).
+    """
+    P, ht, wd = disps.shape
+    ii = ii.long()
+    jj = jj.long()
+    N = ii.shape[0]
+    D = 6
+    HW = ht * wd
+    if m_frames is None:
+        m_frames = P
+
+    coords, valid, (Ji, Jj, Jz) = pops.projective_transform(
+        poses, disps, intrinsics, ii, jj, jacobian=True)
+
+    tgt = target.movedim(1, -1)                        # (N, H, W, 2)
+    r = (tgt - coords) * valid
+    wgt = 0.001 * weight.movedim(1, -1) * valid        # (N, H, W, 2)
+    wgt = wgt * edge_valid[:, None, None, None].to(wgt.dtype)
+
+    Jif = Ji.reshape(N, HW, 2, D)
+    Jjf = Jj.reshape(N, HW, 2, D)
+    Jzf = Jz.reshape(N, HW, 2, 1)
+    rf = r.reshape(N, HW, 2, 1)
+    wf = wgt.reshape(N, HW, 2, 1)
+
+    wJi = wf * Jif
+    wJj = wf * Jjf
+
+    # pose-pose blocks (N, 6, 6): sum over pixels and the 2 coords
+    def blk(A, B):
+        return torch.einsum("npcd,npce->nde", A, B)
+
+    Hii, Hij = blk(wJi, Jif), blk(wJi, Jjf)
+    Hji, Hjj = blk(wJj, Jif), blk(wJj, Jjf)
+    vi = torch.einsum("npcd,npcz->nd", wJi, rf)
+    vj = torch.einsum("npcd,npcz->nd", wJj, rf)
+
+    # pose-depth coupling (N, 6, HW) and depth diagonal/rhs (N, HW)
+    Ei = torch.einsum("npcd,npcz->ndp", wJi, Jzf)
+    Ej = torch.einsum("npcd,npcz->ndp", wJj, Jzf)
+    Ck = torch.einsum("npcz,npcz->np", wf * Jzf, Jzf)
+    wk = torch.einsum("npcz,npcz->np", wf * Jzf, rf)
+
+    # scatter into window-sized blocks; fixed poses drop via index < 0
+    Pa = P - fixedp
+    iia = ii - fixedp
+    jja = jj - fixedp
+
+    def safe_mat(vals, a, b, na, nb):
+        ok = (a >= 0) & (b >= 0)
+        idx = torch.where(ok, a * nb + b, na * nb)
+        return _scatter_rows(vals, idx, na * nb).reshape(
+            na, nb, *vals.shape[1:])
+
+    def safe_vec(vals, a, na):
+        return _scatter_rows(vals, torch.where(a >= 0, a, na), na)
+
+    H = (safe_mat(Hii, iia, iia, Pa, Pa) + safe_mat(Hij, iia, jja, Pa, Pa)
+         + safe_mat(Hji, jja, iia, Pa, Pa) + safe_mat(Hjj, jja, jja, Pa, Pa))
+    v = safe_vec(vi, iia, Pa) + safe_vec(vj, jja, Pa)
+
+    # depth blocks keyed by source frame ii (not compacted)
+    E = (safe_mat(Ei, iia, ii, Pa, m_frames)
+         + safe_mat(Ej, jja, ii, Pa, m_frames))       # (Pa, M, 6, HW)
+    C = safe_vec(Ck, ii, m_frames)                    # (M, HW)
+    w = safe_vec(wk, ii, m_frames)
+
+    C = C + eta.reshape(m_frames, HW) + 1e-7
+    return H, v, E, C, w
+
+
+def schur_reduce(H, v, E, C, w):
+    """Marginalize depths: S = H - E Q E^T, v' = v - E Q w. Q = 1/C."""
+    Pa, M, D, HW = E.shape
+    Q = 1.0 / C                                        # (M, HW)
+    EQ = E * Q[None, :, None, :]                       # (Pa, M, 6, HW)
+    # S[p,q,d,e] = sum_{m,h} EQ[p,m,d,h] E[q,m,e,h], as one matmul
+    A = EQ.permute(0, 2, 1, 3).reshape(Pa * D, M * HW)
+    B = E.permute(0, 2, 1, 3).reshape(Pa * D, M * HW)
+    S = (A @ B.T).reshape(Pa, D, Pa, D).permute(0, 2, 1, 3)
+    S = H - S
+    v2 = v - (A @ w.reshape(M * HW)).reshape(Pa, D)
+    return S, v2, Q
+
+
+def _cholesky_or_eye(A):
+    """Lower Cholesky factor of A and whether it exists; the identity when A
+    is not positive definite or not finite. No host sync."""
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    ok = (info == 0) & torch.isfinite(L).all()
+    return torch.where(ok, L, eye), ok
+
+
+def damped_solve(S, v, ep=0.1, lm=1e-4):
+    """Dense damped solve of the (Pa*6, Pa*6) pose system via Cholesky; a
+    system that has no factor gives dx = 0."""
+    Pa = S.shape[0]
+    A = S.permute(0, 2, 1, 3).reshape(Pa * 6, Pa * 6)
+    eye = torch.eye(Pa * 6, dtype=A.dtype, device=A.device)
+    A = A + (ep + lm * A) * eye
+    b = v.reshape(Pa * 6)
+    L, ok = _cholesky_or_eye(A)
+    b = torch.where(ok, b, torch.zeros_like(b))
+    dx = torch.cholesky_solve(b[:, None], L)[:, 0]
+    dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+    return dx.reshape(Pa, 6)
+
+
+def depth_backsub(dx, E, Q, w):
+    """dz = Q (w - E^T dx)."""
+    Et_dx = torch.einsum("pmdh,pd->mh", E, dx)
+    return Q * (w - Et_dx)
+
+
+def retract(poses, disps, dx, dz, fixedp=1):
+    dx_full = torch.cat([dx.new_zeros((fixedp, 6)), dx], dim=0)
+    poses = lie.se3_retr(poses, dx_full)
+    disps = disps + dz.reshape(disps.shape)
+    disps = torch.where(disps > 10.0, torch.zeros_like(disps), disps)
+    disps = disps.clamp(min=0.0)
+    return poses, disps
+
+
+def ba(target, weight, eta, poses, disps, intrinsics, ii, jj, edge_valid,
+       fixedp=1, iters=1, ep=0.1, lm=1e-4):
+    """Full visual-only dense BA.
+
+    Updates poses (P,7 w2c) and disps (P,H,W) in `iters` Gauss-Newton steps.
+    """
+    for _ in range(iters):
+        H, v, E, C, w = build_system(target, weight, eta, poses, disps,
+                                     intrinsics, ii, jj, edge_valid, fixedp)
+        S, v2, Q = schur_reduce(H, v, E, C, w)
+        dx = damped_solve(S, v2, ep, lm)
+        dz = depth_backsub(dx, E, Q, w)
+        poses, disps = retract(poses, disps, dx, dz, fixedp)
+    return poses, disps
+
+
+def _mask_fixed(S, v, free_mask):
+    """Pin poses with free_mask=False: identity rows/cols in S, zero rhs.
+    free_mask (Pa,) refers to the post-fixedp indexing."""
+    m = free_mask.to(S.dtype)
+    mm = m[:, None, None, None] * m[None, :, None, None]
+    eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
+    diag = (1.0 - m)[:, None, None] * eye6[None]
+    S = S * mm
+    # add identity on fixed diagonal blocks to keep the system well-posed
+    S = S + torch.einsum(
+        "pq,pde->pqde",
+        torch.eye(S.shape[0], dtype=S.dtype, device=S.device), diag)
+    v = v * m[:, None]
+    return S, v
+
+
+def ba_window(target, weight, eta, poses, disps, intrinsics, ii, jj,
+              edge_valid, t0, iters=1, ep=0.1, lm=1e-4):
+    """Dense BA over a window with a first-free index t0 (frames < t0 keep
+    their poses; all depths stay free): the shape the sliding-window
+    frontend needs, where the pinned prefix changes frame to frame."""
+    P = poses.shape[0]
+    free = torch.arange(P, device=poses.device) >= t0
+    for _ in range(iters):
+        H, v, E, C, w = build_system(target, weight, eta, poses, disps,
+                                     intrinsics, ii, jj, edge_valid,
+                                     fixedp=0)
+        S, v2, Q = schur_reduce(H, v, E, C, w)
+        S, v2 = _mask_fixed(S, v2, free)
+        dx = damped_solve(S, v2, ep, lm)
+        dx = dx * free[:, None].to(dx.dtype)
+        dz = depth_backsub(dx, E, Q, w)
+        poses, disps = retract(poses, disps, dx, dz, fixedp=0)
+    return poses, disps
+
+
+def ba_hessian(target, weight, eta, poses, disps, intrinsics, ii, jj,
+               edge_valid, fixedp=0):
+    """Depth-marginalized pose Hessian/rhs in the camera frame. fixedp=0:
+    all window poses are free there.
+    Returns (S (Pa,Pa,6,6), v (Pa,6), aux for retraction)."""
+    H, v, E, C, w = build_system(target, weight, eta, poses, disps,
+                                 intrinsics, ii, jj, edge_valid, fixedp)
+    S, v2, Q = schur_reduce(H, v, E, C, w)
+    return S, v2, (E, Q, w)
+
+
+def depth_covariance(S, E, Q, disps, free_mask=None, ep=0.1, lm=1e-4):
+    """Per-pixel inverse-depth covariance after marginalizing poses:
+
+      Sigma_z = Q + rowsum( (Q E^T L^-T)^2 ),   L = chol(S_damped)
+      depth_cov = Sigma_z / disps^4
+
+    S (P,P,6,6), E (P,M,6,HW), Q (M,HW) from schur_reduce/ba_hessian aux.
+    Returns (M, H, W) metric-depth covariance.
+    """
+    P = S.shape[0]
+    M, HW = Q.shape
+    A = S.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
+    eye = torch.eye(P * 6, dtype=A.dtype, device=A.device)
+    if free_mask is not None:
+        mm = free_mask.to(A.dtype).repeat_interleave(6)
+        A = A * mm[:, None] * mm[None, :] + torch.diag(1.0 - mm)
+    A = A + (ep + lm * A) * eye
+    L, ok = _cholesky_or_eye(A)
+    # X = L^{-1} (Q E^T)^T; its column norms are the pose part of Sigma_z
+    QE = (E * Q[None, :, None, :])              # (P, M, 6, HW)
+    QE = QE.permute(0, 2, 1, 3).reshape(P * 6, M * HW)
+    X = torch.linalg.solve_triangular(L, QE, upper=False)
+    delta = torch.sum(X * X, dim=0).reshape(M, HW)
+    z_cov = torch.where(ok, Q + delta, Q)
+    d = disps.reshape(M, HW)
+    cov = z_cov / (d ** 4 + 1e-6)
+    return cov.reshape(disps.shape)
+
+
+def ba_retract(poses, disps, dx, aux, fixedp=0):
+    """Apply an externally solved pose delta; back-substitute depths."""
+    E, Q, w = aux
+    dz = depth_backsub(dx, E, Q, w)
+    return retract(poses, disps, dx, dz, fixedp)
