@@ -123,3 +123,53 @@ def test_pack_batch_takes_cuda_tensors():
               "pixel_mask"):
         assert getattr(a, f).is_cuda
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def vio_run(device, n=18):
+    """tests/test_vio.py's VIO tracker (its configuration, wiggly IMU and
+    pattern frames at 10 fps), random weights from seed 0."""
+    from vings_mono_tpu_torch.tracker.imu import so3_exp
+    from vings_mono_tpu_torch.tracker.vio import InertialFusion
+    vcfg = load_config(overrides={"mode": "vio", "frontend": {
+        **cfg(0.0)["frontend"], "rollup_at": 100, "vi_warmup": 10}})
+    g = np.array([0.0, 0.0, -9.81])
+    R, rows = np.eye(3), []
+    for k in range(400):
+        t = k / 100.0
+        w = np.array([0.2 * np.sin(0.8 * t), 0.15, -0.1 * np.cos(0.5 * t)])
+        a = np.array([1.5 * np.sin(2.0 * t), 1.0 * np.cos(2.0 * t),
+                      0.3 * np.sin(1.0 * t)])
+        rows.append(np.concatenate([[t], np.rad2deg(w), R.T @ (a - g)]))
+        R = R @ so3_exp(w * 0.01)
+    tr = Tracker(vcfg, H, W, device=device,
+                 generator=torch.Generator().manual_seed(0))
+    inertial = InertialFusion(tr.video, vcfg, np.asarray(rows), np.eye(4))
+    tr.frontend.attach_inertial(inertial)
+    for pkt in frames(n):
+        tr.track({**pkt, "timestamp": pkt["timestamp"] / 10.0})
+    return tr, inertial
+
+
+def test_vio_tracker_on_the_card_follows_the_cpu_run(true_f32):
+    """The VIO tracker on the card and on the CPU, both f32: the same VI-init
+    frame, edge lists and inertial bookkeeping; poses, disparities and body
+    states within 1e-3 (chip_smoke.py phase 8 reads ~1e-5)."""
+    need_cuda()
+    (a, ia), (b, ib) = vio_run("cuda"), vio_run("cpu")
+    assert ia.vi_init_t1 == ib.vi_init_t1 >= 0
+    assert a.video.imu_enabled and b.video.imu_enabled
+    for k in ("ii", "jj", "age", "slot", "ii_inac", "jj_inac"):
+        np.testing.assert_array_equal(getattr(a.graph, k),
+                                      getattr(b.graph, k))
+    assert (ia.last_t0, ia.last_t1) == (ib.last_t0, ib.last_t1)
+    assert ia.stats["updates"] == ib.stats["updates"] > 0
+    assert ia.stats["hessian_ms"] > 0 and ia.stats["pull_ms"] > 0
+    n = a.video.counter
+    for f in ("poses", "disps"):
+        np.testing.assert_allclose(getattr(a.video.bufs, f)[:n].cpu().numpy(),
+                                   getattr(b.video.bufs, f)[:n].numpy(),
+                                   rtol=0, atol=1e-3, err_msg=f)
+    for x, y in zip(ia.states, ib.states):
+        for f in ("R", "p", "v", "b"):
+            np.testing.assert_allclose(getattr(x, f), getattr(y, f),
+                                       rtol=0, atol=1e-3, err_msg=f)

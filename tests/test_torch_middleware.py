@@ -114,11 +114,44 @@ def test_nothing_to_package(packed_state):
         ttr.frontend.new_frame_added = True
 
 
-def test_v0_kitti360_raises(packed_state):
-    _, ttr = packed_state
-    cfg = dict(ttr.cfg, middleware=dict(MW, variant="v0_kitti360"))
-    with pytest.raises(NotImplementedError, match="v0_kitti360"):
-        tmw.judge_and_package(ttr, cfg)
+@pytest.mark.parametrize("new_H", [None, 40])
+def test_v0_kitti360_packaging_matches(packed_state, new_H):
+    """The save-buffer + sky-crop packaging: the last keyframes the window
+    rolled out, the bottom new_H rows, cu re-centred; the same selection,
+    ids and intrinsics, arrays within 1e-5 (the covariances relative to
+    their largest value)."""
+    jtr, ttr = packed_state
+    intr = {"fu": 80.0, "fv": 80.0, "cu": 32.0, "cv": 48.0, "H": 64,
+            "W": 96}
+    if new_H is not None:
+        intr["new_H"] = new_H
+    jcfg = dict(jtr.cfg, intrinsic=intr,
+                middleware=dict(MW, variant="v0_kitti360"))
+    tcfg = dict(ttr.cfg, intrinsic=intr,
+                middleware=dict(MW, variant="v0_kitti360"))
+    j = jmw.judge_and_package(jtr, jcfg)
+    t = tmw.judge_and_package(ttr, tcfg)
+    assert t["n_valid"] == j["n_valid"] == 4
+    np.testing.assert_array_equal(t["valid_localkf_id"], [0, 1, 2, 3])
+    for k in ("valid_localkf_id", "global_kf_id", "viz_out_idx_to_f_idx",
+              "pixel_mask"):
+        np.testing.assert_array_equal(t[k], np.asarray(j[k]), k)
+    np.testing.assert_array_equal(t["global_kf_id_host"],
+                                  np.asarray(j["global_kf_id"]))
+    assert t["intrinsic"] == j["intrinsic"]
+    h = 40 if new_H else 64
+    assert t["images"].shape == (6, h, W, 3) and t["intrinsic"]["H"] == h
+    assert t["intrinsic"]["cu"] == h / 2
+    for k in ("images", "depths", "depths_cov", "poses"):
+        a, b = np.asarray(j[k]), np.asarray(t[k])
+        assert a.shape == b.shape, k
+        scale = max(1.0, float(np.abs(a).max()))
+        assert float(np.abs(a - b).max()) <= 1e-5 * scale, k
+    ttr.frontend.new_frame_added = False
+    try:
+        assert tmw.judge_and_package(ttr, tcfg) is None
+    finally:
+        ttr.frontend.new_frame_added = True
 
 
 @pytest.mark.parametrize("n", [6, 7])

@@ -354,10 +354,13 @@ def test_uint8_frames_are_converted_on_the_device():
 
 
 def test_inertial_layer_and_monitor_raise():
+    """The monitor is not ported and raises; the inertial layer is ported
+    (tests/test_torch_vio.py): attaching one wires it into the graph."""
     _, tcfg = make_cfgs()
     tr = Tracker(tcfg, H, W, device="cpu")
-    with pytest.raises(NotImplementedError, match="vio"):
-        tr.frontend.attach_inertial(object())
+    layer = object()
+    tr.frontend.attach_inertial(layer)
+    assert tr.frontend.inertial is layer and tr.graph.inertial is layer
     _, tcfg = make_cfgs(show_plot=True)
     with pytest.raises(NotImplementedError, match="show_plot"):
         Tracker(tcfg, H, W, device="cpu")

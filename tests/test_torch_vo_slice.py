@@ -136,8 +136,8 @@ def test_vo_slice_on_synthetic3d_with_the_trained_weights(tmp_path):
     check_files(tdir, len(tts))
 
 
-FLAGS = ["use_loop", "use_storage_manager", "use_metric", "use_dynamic",
-         "use_global_ba", "use_vis"]
+FLAGS = ["use_loop", "use_metric", "use_dynamic", "use_global_ba",
+         "use_vis"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)
@@ -151,9 +151,10 @@ def test_unported_flag_raises_its_name(flag, tmp_path):
         run_vo.run(cfg, str(tmp_path), device="cpu")
 
 
-@pytest.mark.parametrize("what", ["mode_vio", "resume", "checkpoint_every",
-                                  "dataset", "main_resume",
-                                  "main_checkpoint_every", "use_sky"])
+@pytest.mark.parametrize("what", ["mode_unknown", "resume",
+                                  "checkpoint_every", "dataset",
+                                  "main_resume", "main_checkpoint_every",
+                                  "use_sky", "use_refine"])
 def test_unported_option_raises(what, tmp_path):
     base = {"dataset": {"module": "synthetic", "n_frames": 2},
             "frontend": {"image_size": [32, 32], "buffer": 12,
@@ -171,13 +172,14 @@ def test_unported_option_raises(what, tmp_path):
             run_vo.main([str(path), "--device", "cpu"] + extra)
         return
     calls = {
-        "mode_vio": (dict(base, mode="vio"), {}, "mode: vio"),
+        "mode_unknown": (dict(base, mode="vio_gnss"), {}, "mode: vio_gnss"),
         "resume": (base, {"resume": str(tmp_path)}, "--resume"),
         "checkpoint_every": (base, {"checkpoint_every": 5},
                              "--checkpoint-every"),
         "dataset": (dict(base, dataset={"module": "kitti_sync"}), {},
                     "kitti_sync"),
         "use_sky": (dict(base, use_sky=True), {}, "use_sky"),
+        "use_refine": (dict(base, use_refine=True), {}, "use_refine"),
     }
     over, kwargs, match = calls[what]
     with pytest.raises(NotImplementedError, match=match):

@@ -138,8 +138,9 @@ def write_rows(state: GaussianState, opt: SparseAdamState, slots,
                valid_new, new_params: Dict[str, torch.Tensor],
                globalkf_id):
     """Insert new Gaussians at `slots` (where valid_new), in place; resets
-    lifecycle state and Adam moments for those rows, which all get the one
-    keyframe id globalkf_id."""
+    lifecycle state and Adam moments for those rows. globalkf_id is one
+    keyframe id for every new row (densify) or one per row (storage
+    page-in, written like the parameters)."""
     idx = slots[valid_new].to(torch.int64)
     mark = torch.zeros((state.capacity,), dtype=torch.bool,
                        device=state.xyz.device)
@@ -150,9 +151,12 @@ def write_rows(state: GaussianState, opt: SparseAdamState, slots,
     state.stable &= ~mark
     state.local_scores[mark] = 0.0
     state.global_scores[mark] = 0.0
-    state.globalkf_id[mark] = torch.as_tensor(globalkf_id,
-                                              dtype=torch.int32,
-                                              device=state.xyz.device)
+    gkf = torch.as_tensor(globalkf_id, dtype=torch.int32,
+                          device=state.xyz.device)
+    if gkf.ndim == 0:
+        state.globalkf_id[mark] = gkf
+    else:
+        state.globalkf_id[idx] = gkf[valid_new]
     state.globalkf_max_scores[mark] = 0.0
     for k in PARAM_FIELDS:
         opt.m[k][mark] = 0.0

@@ -13,8 +13,10 @@ Variants:
     gating math as v3 (depth > max_depth OR cov > cov_times*median, rgb
     zeroed with depth), but a different SELECTION: every keyframe of the
     current BA window, INCLUDING the newest frame;
-  * v0_kitti360 (the save-buffer + sky-crop packaging) is not ported and
-    raises NotImplementedError.
+  * v0_kitti360 (middleware.variant) — the save-buffer + sky-crop
+    packaging: the last 8 keyframes the window has rolled out (their depths
+    are final), only the bottom `new_H` rows, `cu` re-centred. It reads the
+    host save buffers, so its arrays are numpy.
 """
 
 from __future__ import annotations
@@ -123,12 +125,74 @@ def judge_and_package_nerfslam(tracker, cfg):
     return _package(tracker, cfg, valid_localkf)
 
 
+def judge_and_package_v0_kitti360(tracker, cfg=None):
+    """KITTI-360 packaging variant: the mapper trains on the last 8
+    *marginalized* keyframes from the host save buffers (their depths are
+    final: no longer being optimized), and the sky band is cropped off:
+    only the bottom `new_H` rows are packaged, with cu re-centered.
+    new_H = image_size[0] * (intrinsic.new_H / intrinsic.H), rounded down
+    to a multiple of 8."""
+    cfg = cfg if cfg is not None else tracker.cfg
+    video = tracker.video
+    if not tracker.frontend.new_frame_added:
+        return None
+    ns = video.count_save
+    k_cap = int(cfg["mapper"]["kf_capacity"])
+    sel = np.arange(max(ns - 8, 0), ns)
+    if len(sel) == 0:
+        return None
+    K = min(len(sel), k_cap)
+    sel = sel[-K:]
+
+    H, W = video.ht, video.wd
+    ic = cfg["intrinsic"]
+    u_scale = float(ic.get("new_H", ic["H"])) / float(ic["H"])
+    new_H = int(u_scale * H) // 8 * 8
+    new_cu = new_H / 2.0
+
+    depths = (1.0 / (video.disps_up_save[sel] + 1e-6))[..., None]
+    covs = video.depths_cov_up_save[sel][..., None]
+    cov_med = np.median(covs.reshape(K, -1), axis=1)[:, None, None, None]
+    mw = cfg["middleware"]
+    zero = (depths > float(mw["max_depth"])) | \
+        (covs > float(mw["cov_times"]) * cov_med)
+    depths = np.where(zero, 0.0, depths)
+    rgbs = np.where(depths == 0, 0.0, video.images_save[sel])
+    c2ws = lie.se3_matrix(lie.se3_inv(
+        torch.from_numpy(video.poses_save[sel]))).numpy()
+
+    intr = video.bufs.intrinsics[0].cpu().numpy() * 8.0
+    intrinsic = {"fu": float(intr[1]), "fv": float(intr[0]),
+                 "cu": float(new_cu), "cv": float(intr[2]),
+                 "H": int(new_H), "W": int(W)}
+
+    def pad(x):
+        if x.shape[0] == k_cap:
+            return x
+        reps = [k_cap - x.shape[0]] + [1] * (x.ndim - 1)
+        return np.concatenate([x, np.tile(x[-1:], reps)], axis=0)
+
+    global_kf_id = pad(np.asarray(sel, np.int64))
+    return {
+        "images": pad(rgbs[:, -new_H:]),
+        "depths": pad(depths[:, -new_H:]),
+        "depths_cov": pad(covs[:, -new_H:]),
+        "poses": pad(c2ws),
+        "viz_out_idx_to_f_idx": video.tstamp_save[sel],
+        "intrinsic": intrinsic,
+        "pixel_mask": np.ones((k_cap, new_H, W), bool),
+        "global_kf_id": global_kf_id,
+        "global_kf_id_host": global_kf_id,
+        "valid_localkf_id": sel,
+        "n_valid": K,
+    }
+
+
 def judge_and_package(tracker, cfg=None):
     cfg = cfg if cfg is not None else tracker.cfg
     variant = cfg.get("middleware", {}).get("variant")
     if variant == "v0_kitti360":
-        raise NotImplementedError(
-            "middleware.variant v0_kitti360 is not ported yet")
+        return judge_and_package_v0_kitti360(tracker, cfg)
     if variant == "nerfslam" or cfg.get("mode") == "vo_nerfslam":
         return judge_and_package_nerfslam(tracker, cfg)
     fe = tracker.frontend

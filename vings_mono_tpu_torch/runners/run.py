@@ -1,5 +1,6 @@
 """Flagship single-process pipeline:
-dataset -> tracker -> middleware -> mapper -> trajectory + .ply.
+dataset -> tracker [-> inertial fusion] -> middleware -> mapper
+[-> storage paging] -> trajectory + .ply.
 
 Usage: python -m vings_mono_tpu_torch.runners.run <config.yaml>
            [--prefix NAME] [--max-frames N] [--device cuda|cpu]
@@ -7,11 +8,16 @@ Usage: python -m vings_mono_tpu_torch.runners.run <config.yaml>
 Runs on CUDA unless `--device` (or the config's `device` block) says
 otherwise; without CUDA it raises and does not carry on on the CPU.
 
-Ported: `mode: vo` and `mode: vo_nerfslam`. Every option that is not ported
-yet raises NotImplementedError naming it: `mode: vio`, `use_loop`,
-`use_storage_manager`, `use_metric`, `use_dynamic`, `use_global_ba`,
-`use_vis`, `--resume`, `--checkpoint-every` (the mapper names its own:
-`use_sky`, `use_refine`, `parallel.dp`, `training_args.coarse_frac`).
+Ported: `mode: vo`, `vo_nerfslam` and `vio` (the inertial layer reads the
+dataset's `preload_imu()`, and `preload_gnss()` / `preload_odo()` where the
+dataset has them, with `frontend.c2i` from the dataset's `c2i`),
+`use_storage_manager` (paging every `storage_manager.every` frames, timed as
+stage `storage`), and `middleware.variant` v3, nerfslam and v0_kitti360.
+Every option that is not ported yet raises NotImplementedError naming it:
+`use_loop`, `use_metric`, `use_dynamic`, `use_global_ba`, `use_vis`,
+`--resume`, `--checkpoint-every` (the mapper names its own: `use_sky`,
+`use_refine`, `parallel.dp`, `training_args.coarse_frac`; the dataset
+loader names the image-folder datasets).
 """
 
 from __future__ import annotations
@@ -23,9 +29,9 @@ import time
 
 import numpy as np
 
-UNPORTED_FLAGS = ("use_loop", "use_storage_manager", "use_metric",
-                  "use_dynamic", "use_global_ba", "use_vis")
-MODES = ("vo", "vo_nerfslam")
+UNPORTED_FLAGS = ("use_loop", "use_metric", "use_dynamic", "use_global_ba",
+                  "use_vis")
+MODES = ("vo", "vo_nerfslam", "vio")
 
 
 def check_ported(cfg, resume=None, checkpoint_every=None):
@@ -44,8 +50,10 @@ def check_ported(cfg, resume=None, checkpoint_every=None):
 
 
 def build(cfg, device=None):
-    """(dataset, tracker, mapper) for a config; `device` overrides the
-    config's `device` block for both."""
+    """(dataset, tracker, mapper, storage) for a config; `device` overrides
+    the config's `device` block for tracker and mapper. With `mode: vio`
+    the tracker has its inertial layer attached; storage is None unless
+    `use_storage_manager` is set."""
     from ..datasets.base import get_dataset
     from ..mapper.mapper import GaussianMapper
     from ..tracker.tracker import Tracker
@@ -58,7 +66,21 @@ def build(cfg, device=None):
     weights = cfg["frontend"].get("weight")
     tracker = Tracker(cfg, H, W, weights_path=weights, device=device)
     mapper = GaussianMapper(cfg, device=device)
-    return dataset, tracker, mapper
+    if cfg.get("mode") == "vio":
+        from ..tracker.vio import InertialFusion
+        # optional GNSS / wheel-odometry streams [(M,4) t,xyz] when the
+        # dataset provides them
+        gnss = getattr(dataset, "preload_gnss", lambda: None)()
+        odo = getattr(dataset, "preload_odo", lambda: None)()
+        tracker.frontend.attach_inertial(InertialFusion(
+            tracker.video, cfg, dataset.preload_imu(),
+            np.asarray(cfg["frontend"]["c2i"]), all_gnss=gnss,
+            all_odo=odo))
+    storage = None
+    if cfg.get("use_storage_manager"):
+        from ..storage.manager import StorageManager
+        storage = StorageManager(cfg)
+    return dataset, tracker, mapper, storage
 
 
 def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
@@ -76,7 +98,8 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     from ..utils.trajectory import save_trajectory
 
     check_ported(cfg, resume, checkpoint_every)
-    dataset, tracker, mapper = build(cfg, device=device)
+    dataset, tracker, mapper, storage = build(cfg, device=device)
+    every = int(cfg["storage_manager"]["every"]) if storage else 0
 
     timer = StageTimer(sync_device=tracker.device if sync_timer else None)
     n = len(dataset) if max_frames is None else min(len(dataset),
@@ -90,6 +113,9 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
         if viz_out is not None:
             with timer("map"):
                 mapper.run(viz_out)
+        if storage is not None and idx % every == every - 1:
+            with timer("storage"):
+                storage.run(tracker, mapper, viz_out)
         if on_frame is not None:
             on_frame(idx, tracker, mapper, viz_out)
 

@@ -10,8 +10,12 @@ per new keyframe (`_update`):
     remove keyframe t1-2, else run iters2 more updates,
   * seed pose/disp of the next incoming slot.
 
-The inertial fusion layer and the live monitor are not ported:
-`attach_inertial` and `frontend.show_plot` raise NotImplementedError.
+An inertial layer (tracker/vio.py, `attach_inertial`) hooks in at frame
+arrival (IMU prediction), keyframe removal (interval merge), rollup
+(rekeying) and after the keyframe decision (VI and GNSS initialization);
+both distance prefetches are off while one is attached, since the IMU
+prediction between frames moves the poses they would measure. The live
+monitor is not ported: `frontend.show_plot` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -97,8 +101,8 @@ class Frontend:
                 "frontend.show_plot (the live monitor) is not ported yet")
 
     def attach_inertial(self, inertial):
-        raise NotImplementedError(
-            "the inertial fusion layer (mode: vio) is not ported yet")
+        self.inertial = inertial
+        self.graph.inertial = inertial
 
     # ------------------------------------------------------------------
     def __call__(self):
@@ -111,6 +115,8 @@ class Frontend:
     def _initialize(self):
         self.t0, self.t1 = 0, self.video.counter
         self.graph.add_neighborhood_factors(self.t0, self.t1, r=3)
+        if self.inertial is not None:
+            self.inertial.init_states()
         for _ in range(8):
             self.graph.update(1, use_inactive=True)
         self.graph.add_proximity_factors(0, 0, rad=2, nms=2,
@@ -130,6 +136,9 @@ class Frontend:
         self.did_rollup = False
         self.count += 1
         self.t1 += 1
+
+        if self.inertial is not None:
+            self.inertial.on_new_frame(self.t1)
 
         # age out edges
         if len(self.graph.ii) > 0:
@@ -178,6 +187,8 @@ class Frontend:
                     bidirectional=True)[0])
         if d < self.keyframe_thresh:
             self.graph.rm_keyframe(self.t1 - 2)
+            if self.inertial is not None:
+                self.inertial.on_rm_keyframe(self.t1 - 2)
             self.t1 -= 1
         else:
             for k in range(self.iters2):
@@ -188,6 +199,13 @@ class Frontend:
                 self.graph.update(None, None, iters=2, use_inactive=True)
             self.new_frame_added = True
 
+        if self.inertial is not None:
+            self.inertial.maybe_initialize(self.t1)
+            # GNSS geo-referencing once IMU fusion is live, with one more
+            # update in the new frame
+            if self.inertial.maybe_init_gnss(self.t1):
+                self.graph.update(None, None, iters=2, use_inactive=True)
+
         self._seed_next()
         self._prefetch_proximity()
 
@@ -196,7 +214,10 @@ class Frontend:
         final after _seed_next), and the next frame's keyframe decision
         distance: its pair (t1'-3, t1'-2) is (t1-2, t1-1) in this frame's
         numbering — both already in the window. A rollup shifts that key
-        (see _rollup)."""
+        (see _rollup). Neither runs with an inertial layer attached: its
+        IMU prediction moves the next frame's pose before the query."""
+        if self.inertial is not None:
+            return
         self.graph.prefetch_proximity(
             self.t1 - 4, max(self.t1 + 1 - self.frontend_window, 0),
             beta=self.beta)
@@ -219,6 +240,8 @@ class Frontend:
         self.graph.jj_bad = np.maximum(self.graph.jj_bad - n, -1)
         self.t0 = max(0, self.t0 - n)
         self.t1 -= n
+        if self.inertial is not None:
+            self.inertial.on_rollup(n)
 
     @torch.no_grad()
     def _apply_disp_prior(self, ix):

@@ -18,8 +18,12 @@ those of a program that runs over the padded capacity.
 The BA runs over a fixed-size window of `ba_window` frames ending at the
 newest keyframe; edges whose frames fall out of that window are masked out.
 
-The inertial branch (pose fusion on a host factor graph) is not ported: a
-graph with an inertial layer attached raises NotImplementedError.
+With an inertial layer attached and initialized (`video.imu_enabled`), an
+update runs the GRU and the weight tricks here, hands the assembled BA
+inputs to `InertialFusion.multi_sensor_ba` (device Hessian, host factor
+graph, device retraction) and then writes the window back
+(`_finish_update`). That branch computes no depth covariance, as the JAX
+package's does not.
 """
 
 from __future__ import annotations
@@ -122,9 +126,11 @@ def _fused_update(update, bufs: VideoBuffers, edges: EdgeStore,
                   imu_enabled: bool, visual_only: bool, w_ba: int,
                   iters: int, far_threshold: float = -1.0,
                   mask_threshold: float = -1.0, compute_cov: bool = False,
-                  bf16: bool = True):
+                  bf16: bool = True, do_ba: bool = True):
     """One GRU+BA update over the active graph, written into bufs and edges
-    in place.
+    in place. With do_ba False (the inertial branch) the BA is not run:
+    the assembled BA inputs are returned instead, for
+    InertialFusion.multi_sensor_ba and then `_finish_update`.
 
     `packed` is ONE integer host upload carrying the per-call index lists,
     live entries only: [slots | ii | jj] of the n_act active edges, then
@@ -216,6 +222,11 @@ def _fused_update(update, bufs: VideoBuffers, edges: EdgeStore,
     tgt = torch.cat([target, inac.target[inac_slots]]).movedim(-1, 1)
     wgt = torch.cat([weight, inac.weight[inac_slots]]).movedim(-1, 1)
 
+    up_mask = upmask[:w_ba]
+    if not do_ba:
+        return (tgt, wgt, eta_ba, all_ii, all_jj, all_valid, poses_win,
+                disps_win, dsens_win, intr_win, up_mask, has_edge)
+
     t0_rel = t0 - base
     poses_win, disps_win = ba_ops.ba_window(
         tgt, wgt, eta_ba, poses_win, disps_win, intr_win, all_ii, all_jj,
@@ -224,7 +235,6 @@ def _fused_update(update, bufs: VideoBuffers, edges: EdgeStore,
     # honor metric-depth priors: where disps_sens > 0 keep it pinned
     disps_win = torch.where(dsens_win > 0, dsens_win, disps_win)
 
-    up_mask = upmask[:w_ba]
     if compute_cov:
         # depth covariance at the final linearization, upsampled with the
         # same convex mask as the disparities
@@ -240,11 +250,24 @@ def _fused_update(update, bufs: VideoBuffers, edges: EdgeStore,
         bufs.depths_cov[win] = cov
         bufs.depths_cov_up[win] = cov_up
 
+    _writeback_window(bufs, win, poses_win, disps_win, up_mask, has_edge)
+
+
+def _writeback_window(bufs, win, poses_win, disps_win, up_mask, has_edge):
     bufs.poses[win] = poses_win
     bufs.disps[win] = disps_win
     up = upsample_disp(disps_win, up_mask)
     bufs.disps_up[win] = torch.where(has_edge[:, None, None], up,
                                      bufs.disps_up[win])
+
+
+def _finish_update(bufs, base, poses_win, disps_win, dsens_win, up_mask,
+                   has_edge):
+    """The inertial branch's end of an update: re-pin the metric-depth
+    priors, write the window back, upsample."""
+    disps_win = torch.where(dsens_win > 0, dsens_win, disps_win)
+    _writeback_window(bufs, slice(base, base + poses_win.shape[0]),
+                      poses_win, disps_win, up_mask, has_edge)
 
 
 class CovisibleGraph:
@@ -427,9 +450,6 @@ class CovisibleGraph:
     def update(self, t0=None, t1=None, iters=2, use_inactive=True):
         if len(self.ii) == 0:
             return
-        if self.inertial is not None:
-            raise NotImplementedError(
-                "the inertial update (mode: vio) is not ported yet")
         if t0 is None:
             t0 = max(1, int(self.ii.min()) + 1)
         if t1 is None:
@@ -449,17 +469,43 @@ class CovisibleGraph:
                               self.jj_inac[m])
         compute_cov = self._next_update_cov
         self._next_update_cov = False
+        inertial = self.inertial is not None and self.video.imu_enabled
+        bufs = self.video.bufs
         with f32_matmul():
-            _fused_update(
-                self.update_module, self.video.bufs, self.edges, self.inac,
+            out = _fused_update(
+                self.update_module, bufs, self.edges, self.inac,
                 packed, n_act=len(self.ii), n_inac=int(m.sum()), base=base,
                 t0=t0, ii_max=int(self.ii.max()), jj_max=int(self.jj.max()),
                 imu_enabled=self.video.imu_enabled,
                 visual_only=self.video.visual_only_init, w_ba=self.w_ba,
                 iters=iters, far_threshold=self.far_threshold,
                 mask_threshold=self.mask_threshold, compute_cov=compute_cov,
-                bf16=self.bf16_gru)
+                bf16=self.bf16_gru, do_ba=not inertial)
+            if inertial:
+                # GRU on the device, pose fusion on the host factor graph
+                (tgt, wgt, eta_ba, all_ii, all_jj, all_valid, poses_win,
+                 disps_win, dsens_win, intr_win, up_mask, has_edge) = out
+                poses_win, disps_win = self.inertial.multi_sensor_ba(
+                    tgt, wgt, eta_ba, all_ii, all_jj, all_valid,
+                    self._window_edges(base, m), base, t1, poses_win,
+                    disps_win, intr_win)
+                _finish_update(bufs, base, poses_win, disps_win, dsens_win,
+                               up_mask, has_edge)
         self.age += 1
+
+    def _window_edges(self, base, m):
+        """Host copy of the BA edge list `_fused_update` assembles on the
+        device: window-relative (ii, jj) and in-window validity of the
+        active edges, then of the inactive ones selected by `m`."""
+        def rel(x):
+            return np.clip(x - base, 0, self.w_ba - 1)
+
+        def inw(x):
+            return (x >= base) & (x < base + self.w_ba)
+
+        ii = np.concatenate([self.ii, self.ii_inac[m]])
+        jj = np.concatenate([self.jj, self.jj_inac[m]])
+        return rel(ii), rel(jj), inw(ii) & inw(jj)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
