@@ -44,7 +44,34 @@ Phases, each printing its own lines; any failure exits non-zero:
      out and in with a bit-exact round trip, and the VIO tracker on the card
      against the CPU on a small input; prints the inertial layer's device
      and host costs per frame, the storage stage, the synchronizing calls
-     of a tracked frame and its profile.
+     of a tracked frame and its profile; `use_vis` is on: the rgbdnua
+     panel every keyframe, the map with the storage composite and the
+     follow-cam BEV every tenth (arrays checked; no file is written where
+     cv2 does not import), and both kernels against their plain twins on
+     the first 131072 host-paged rows under the map's 480x640 camera, as
+     `vis_map` renders them;
+  9. the slice's main path: `runners.run.run` on
+     `configs/synthetic/smoke_vio.yaml` as committed (`mode: vio`, storage
+     every 10 frames, `use_vis`, `use_global_ba`, 30 frames at 240x432);
+     prints the stage times, the global BA's stats and parts, the vis
+     arrays, holds both kernels against their plain twins on the trained
+     map under the run's own cameras (the newest keyframe's at 240x432,
+     the map's at 480x640, the follow-cam's at 320x320), and holds the
+     global BA on the card against the same pass on the CPU from the same
+     snapshot of the video's buffers;
+ 10. (run right after phase 7, on its tracker) GlobalBA with the backend
+     defaults at 240x800: times of re-encode, edge proposal, GRU rounds
+     and solve, edges, peak memory, synchronizing calls, ATE before and
+     after; then `ba_global_banded` at T = 1024 keyframes of 30x100 with
+     oracle targets against the dense `ba_global`, and alone at T = 8000
+     (the KITTI-360 save_buffer) with GlobalBA's band and CG settings: ms
+     per Gauss-Newton step, CG iterations, peak memory;
+ 11. phase 4's replay once each with `use_sky`, `use_refine` (one
+     keyframe's pose perturbed by a known SE3) and `coarse_frac` 0.5:
+     keyframe times against phase 4's, PSNR, both kernels against their
+     plain twins on the sky sphere's pairs and at 120x400, and refine's
+     gradient with respect to the pose through the kernels against the
+     gradient through the plain twins.
 The second-to-last line is the card's name and power limit, the last line
 a JSON summary. Without CUDA it exits 1 and prints no result.
 """
@@ -53,6 +80,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib
 import json
 import pathlib
 import shutil
@@ -182,15 +211,16 @@ def write_windows(root, n_kf, kf_capacity, seed):
 # kernel checks and timing
 # ---------------------------------------------------------------------------
 
-def pair_inputs(state, w2c, bin_kwargs, device):
+def pair_inputs(state, w2c, bin_kwargs, device, intrinsic=None):
     """The tile kernels' inputs for one camera: a fresh binning of `state`
-    as the mapper makes it, gathered into the (24, P_CAP) pair block."""
+    as the mapper makes it, gathered into the (24, P_CAP) pair block.
+    `intrinsic` defaults to the 240x800 camera."""
     import torch
     from vings_mono_tpu_torch.mapper.cameras import camera_from_intrinsic
     from vings_mono_tpu_torch.ops.rasterizer import (bin_for_camera,
                                                      project_surfels)
     from vings_mono_tpu_torch.ops.rasterizer.render import camera_meta
-    cam = camera_from_intrinsic(w2c, INTRINSIC)
+    cam = camera_from_intrinsic(w2c, intrinsic or INTRINSIC)
     args = (state.xyz, state.log_scale, state.quat, state.logit_opacity,
             state.rgb, cam)
     with torch.no_grad():
@@ -266,7 +296,9 @@ def check_bounds(label, pair_data, tc, meta, chunk):
 
 def check_kernels(label, pair_data, tc, meta, chunk, seed, n_pairs):
     """Phases 2 and 3 on one pair block; returns the max abs errors, the
-    plain twin's work counts and the kernel's cull counts."""
+    plain twin's work counts, the kernel's cull counts and the largest
+    errors relative to what they are held to (the forward's channel-group
+    scale, the backward's row maximum)."""
     import torch
     from vings_mono_tpu_torch.ops.rasterizer import tile_kernel as tk
     counts = torch.zeros(3, dtype=torch.int64, device=pair_data.device)
@@ -276,11 +308,12 @@ def check_kernels(label, pair_data, tc, meta, chunk, seed, n_pairs):
     torch.cuda.synchronize()
     k_hits, k_visits, k_cand = (int(x) for x in counts)
     hits, near = int(hits), int(near)
-    errs = {}
+    errs, rel = {}, {"fwd": 0.0}
     for name, (a, b) in FWD_GROUPS.items():
         e = float((out[:, a:b] - ref[:, a:b]).abs().max())
         scale = max(1.0, float(ref[:, a:b].abs().max()))
         errs[name] = e
+        rel["fwd"] = max(rel["fwd"], e / scale)
         check(e <= FWD_TOL * scale,
               f"{label} forward {name}: max abs err {e} > {FWD_TOL}*{scale}")
     check(float(out[:, ZERO_ROWS].abs().max()) == 0.0,
@@ -339,19 +372,19 @@ def check_kernels(label, pair_data, tc, meta, chunk, seed, n_pairs):
         check(torch.equal(raw, raw0), f"{label} backward {name}: the cull "
               f"changes the gradients")
         scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-12)
-        rel = float(((got - want).abs() / scale).max())
+        rel[name] = float(((got - want).abs() / scale).max())
         bwd_err[name] = float((got - want).abs().max())
-        check(rel <= BWD_TOL[name],
-              f"{label} backward {name}: rel err {rel} > {BWD_TOL[name]}")
+        check(rel[name] <= BWD_TOL[name], f"{label} backward {name}: rel "
+              f"err {rel[name]} > {BWD_TOL[name]}")
         check(bool(torch.isfinite(got).all()),
               f"{label} backward {name}: non-finite grads")
         print(f"phase 3 backward kernel vs plain [{label}] {name}: max abs "
-              f"err {bwd_err[name]:.3e}, max err / row max {rel:.3e} "
+              f"err {bwd_err[name]:.3e}, max err / row max {rel[name]:.3e} "
               f"(tol {BWD_TOL[name]}), score row max "
               f"{float(want[tk.GR_SCORE_IMP].abs().max()):.3f}; a second "
               f"launch and the kernel without the cull are bitwise equal",
               flush=True)
-    return fwd_err, bwd_err, evals, hits, 1 - k_visits / k_cand
+    return fwd_err, bwd_err, evals, hits, 1 - k_visits / k_cand, rel
 
 
 def check_refusals(chunk, device):
@@ -454,7 +487,7 @@ VO_CUTS = [
      "runs vio"),
     ("use_storage_manager", "true -> false", "phase 8 runs the storage "
      "manager"),
-    ("use_vis", "true -> false", "not ported"),
+    ("use_vis", "true -> false", "phase 8 runs the vis outputs"),
     ("frontend.rollup_at", "65 -> 40", "the run is cut to 100 frames (~50 "
      "keyframes) to leave the script's time to phase 8; a rollup must "
      "still fire"),
@@ -680,8 +713,8 @@ def tracker_op_times(tracker):
 
 def vo_slice(args, tk, rehearsal=None):
     """Phase 7. Returns the kernels' launch counts during the VO run, the
-    frame log and the ATE. `rehearsal`: config overrides for a run at a
-    small size on the CPU (never set by main)."""
+    frame log, the ATE, the tracker and the config. `rehearsal`: config
+    overrides for a run at a small size on the CPU (never set by main)."""
     import torch
     from vings_mono_tpu_torch import middleware
     from vings_mono_tpu_torch.datasets.base import get_dataset
@@ -887,7 +920,7 @@ def vo_slice(args, tk, rehearsal=None):
           f"storage", flush=True)
     check(same, "the packaged images took a copy on their way into the "
           "mapper")
-    return launches, log, ate
+    return launches, log, ate, tracker, cfg
 
 # ---------------------------------------------------------------------------
 # phase 8: the visual-inertial slice with storage paging
@@ -912,7 +945,6 @@ VIO_CUTS = [
      "would never fire"),
     ("frontend.weight", "checkpoints/droid.pth -> vings_mono_tpu/weights/"
      "droid_selftrained.npz", "droid.pth is not in the repository"),
-    ("use_vis", "true -> false", "not ported"),
     ("storage_manager.distance_threshold", f"70.0 -> {STORAGE_THRESHOLD} "
      "room units", "70 m is KITTI's street scale: in an 8-unit room nothing "
      f"would page; {STORAGE_THRESHOLD} pages keyframes out across the "
@@ -1246,7 +1278,6 @@ def vio_slice(args, tk):
     # the profile
     n_all = args.vio_frames + 20
     cfg = load_config(str(CONFIG), overrides={
-        "use_vis": False,
         "dataset": {"module": "synthetic3d", "n_frames": n_all,
                     "revs": VIO_REVS_PER_FRAME * n_all,
                     "focal": INTRINSIC["fv"], "tex_seed": args.seed},
@@ -1312,7 +1343,8 @@ def vio_slice(args, tk):
     made = []
     with replaced(dbase, "get_dataset", lambda c: dataset_cls(c)), \
             replaced(smod, "StorageManager",
-                     checked_storage(smod.StorageManager, made)):
+                     checked_storage(smod.StorageManager, made)), \
+            recording_vis(run_vo) as vis_calls:
         tracker, mapper, timer = run_vo.run(
             cfg, str(save_dir), max_frames=args.vio_frames,
             on_frame=on_frame, sync_timer=True)
@@ -1336,6 +1368,9 @@ def vio_slice(args, tk):
           f"{v.counter + v.count_save} keyframes, the mapper trained on "
           f"{n_map}; peak device memory {peak_gb:.2f} GB; launches "
           f"{launches}", flush=True)
+    check_vis("phase 8", vis_calls, H, W, n_map, cfg.get("vis"))
+    check_vis_kernels("phase 8", vis_calls, mapper, cfg.get("vis"),
+                      args.seed + 30, host=True)
     check(log["init_idx"] is not None and v.imu_enabled
           and inertial.imu_enabled, "VI init did not fire")
     print(f"phase 8 VI init: at frame {log['init_idx']} (keyframe "
@@ -1500,6 +1535,730 @@ def vio_slice(args, tk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# vis outputs (phases 8 and 9)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_vis(run_mod):
+    """runners.run._save_vis with a recorder round it: for every call the
+    keyframe count, the storage manager's host rows, each image's shape
+    and non-black share, and the cameras it rendered (the newest
+    keyframe's pose and intrinsic; at a map, the trajectory the map's
+    camera frames) with the first HOST_CHUNK rows of the host pages that
+    `vis_map` composited. No file is written on a machine without cv2."""
+    from vings_mono_tpu_torch.utils.trajectory import tracker_c2ws
+    from vings_mono_tpu_torch.utils.vis import HOST_CHUNK, host_array
+    calls = []
+    orig = run_mod._save_vis
+
+    def rec(cfg, save_dir, tracker, mapper, storage, viz_out, kf_count):
+        out = orig(cfg, save_dir, tracker, mapper, storage, viz_out,
+                   kf_count)
+        n_host = 0 if storage is None else storage.n_host
+        call = {"kf": kf_count, "host_rows": n_host,
+                "pose": host_array(viz_out["poses"][-1]).astype(np.float64),
+                "intrinsic": dict(viz_out["intrinsic"]),
+                "images": {k: (v.shape, v.dtype,
+                               float((v.sum(-1) > 0).mean()))
+                           for k, v in out.items()}}
+        if "map" in out:
+            call["c2ws"] = np.asarray(tracker_c2ws(tracker)[1])
+            if n_host:
+                call["host_chunk"] = {
+                    k: storage.host[k][:HOST_CHUNK].copy()
+                    for k in ("xyz", "log_scale", "quat", "logit_opacity",
+                              "rgb")}
+        calls.append(call)
+        return out
+    with replaced(run_mod, "_save_vis", rec):
+        yield calls
+
+
+def check_vis_kernels(tag, calls, mapper, vcfg, seed, host=False):
+    """Both kernels against their plain twins on the inputs the vis
+    stage gives them: the newest keyframe's camera (the rgbdnua panel's
+    render, the training shape), the map's bird's-eye camera over the
+    trained state and the follow-cam BEV at the last map; with `host`,
+    instead the map's camera over the first HOST_CHUNK rows of the host
+    pages at the last map that composited any, as `vis_map` renders them
+    through the raw `render`. Returns the largest forward and bf16
+    backward errors, absolute and relative to what they are held to."""
+    import types
+    import torch
+    from vings_mono_tpu_torch.utils.vis import follow_camera, map_camera
+    vcfg = vcfg or {}
+    map_size = tuple(vcfg.get("map_size", (480, 640)))
+    bev_size = tuple(vcfg.get("bev_size", (320, 320)))
+    maps = [c for c in calls if "c2ws" in c]
+    check(bool(maps), f"{tag}: no map was drawn")
+    kw = dict(mapper.bin_kwargs)
+    blocks = []
+    if host:
+        with_host = [c for c in maps if "host_chunk" in c]
+        check(bool(with_host), f"{tag}: no map composited host pages")
+        c = with_host[-1]
+        rows = {k: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                for k, a in c["host_chunk"].items()}
+        blocks.append((f"host pages {len(rows['xyz'])} of {c['host_rows']} "
+                       f"rows, map camera at keyframe {c['kf']}",
+                       types.SimpleNamespace(alive=None, **rows),
+                       map_camera(c["c2ws"], map_size)))
+    else:
+        last = calls[-1]
+        blocks.append((f"newest keyframe's camera at keyframe {last['kf']}",
+                       mapper.state, (np.linalg.inv(last["pose"]),
+                                      last["intrinsic"])))
+        blocks.append((f"map camera at keyframe {maps[-1]['kf']}",
+                       mapper.state, map_camera(maps[-1]["c2ws"], map_size)))
+        blocks.append((f"follow-cam at keyframe {maps[-1]['kf']}",
+                       mapper.state, follow_camera(maps[-1]["pose"],
+                                                   bev_size)))
+    fwd, bwd, fwd_rel, bwd_rel = 0.0, 0.0, 0.0, 0.0
+    for i, (what, st, (w2c, intr)) in enumerate(blocks):
+        w2c = torch.as_tensor(w2c, dtype=torch.float32, device=DEVICE)
+        pd, binned, meta = pair_inputs(st, w2c, kw, DEVICE, intrinsic=intr)
+        n_pairs = int(binned.n_pairs)
+        label = f"{tag} {int(intr['H'])}x{int(intr['W'])} {what}"
+        print(f"{tag} kernels on the vis inputs: {label}: {n_pairs} pairs, "
+              f"p_cap {pd.shape[1]}", flush=True)
+        check(n_pairs > 0, f"{label}: no pair to rasterize")
+        f, b, _, _, _, rel = check_kernels(label, pd, binned.tile_chunks,
+                                           meta, int(kw["chunk"]), seed + i,
+                                           n_pairs)
+        fwd, bwd = max(fwd, f), max(bwd, b["bf16"])
+        fwd_rel, bwd_rel = max(fwd_rel, rel["fwd"]), max(bwd_rel,
+                                                         rel["bf16"])
+    return fwd, bwd, fwd_rel, bwd_rel
+
+
+def check_vis(tag, calls, h, w, min_calls, vcfg=None):
+    """The rgbdnua panel at every call, the map and BEV at every tenth
+    keyframe (sizes from the config's `vis` block, as `_save_vis` takes
+    them), uint8 of the right shapes and not black."""
+    from vings_mono_tpu_torch.utils import vis
+    vcfg = vcfg or {}
+    check(len(calls) >= min_calls, f"{tag}: vis ran {len(calls)} times")
+    want = {"rgbdnua": (2 * h, 4 * w, 3),
+            "map": tuple(vcfg.get("map_size", (480, 640))) + (3,),
+            "bev": tuple(vcfg.get("bev_size", (320, 320))) + (3,)}
+    for c in calls:
+        names = ["rgbdnua"] + (["map", "bev"] if (c["kf"] - 1) % 10 == 0
+                               else [])
+        check(sorted(c["images"]) == sorted(names),
+              f"{tag}: keyframe {c['kf']} drew {sorted(c['images'])}")
+        # the panel holds the ground truth; the map must show something,
+        # and so must the first follow-cam BEV (over the seeded map);
+        # later ones may look past the map
+        for k, (shape, dtype, lit) in c["images"].items():
+            floor = {"rgbdnua": 0.02, "map": 0.0,
+                     "bev": 0.0 if c["kf"] == 1 else -1.0}[k]
+            check(shape == want[k] and dtype == np.uint8 and lit > floor,
+                  f"{tag}: {k} of keyframe {c['kf']}: {shape} {dtype}, "
+                  f"non-black share {lit:.3f}")
+    maps = [c for c in calls if "map" in c["images"]]
+    share = lambda k, cs: ", ".join(  # noqa: E731
+        f"{c['images'][k][2]:.3f}" for c in cs)
+    print(f"{tag} vis: {len(calls)} rgbdnua panels {want['rgbdnua']} "
+          f"(non-black share {min(c['images']['rgbdnua'][2] for c in calls):.3f}"
+          f" at the lowest); maps {want['map']} at keyframes "
+          f"{[c['kf'] for c in maps]} (non-black {share('map', maps)}; host "
+          f"rows composited {[c['host_rows'] for c in maps]}); BEVs "
+          f"{want['bev']} (non-black {share('bev', maps)}); files written: "
+          f"{vis.cv2 is not None} (cv2 imports: {vis.cv2 is not None})",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: configs/synthetic/smoke_vio.yaml as committed
+# ---------------------------------------------------------------------------
+
+SMOKE_VIO = ROOT / "configs/synthetic/smoke_vio.yaml"
+SNAP_FIELDS = ("poses", "disps", "images", "disps_up")
+
+
+def video_snapshot(video):
+    """The video's keyframe buffers on the host: what GlobalBA reads."""
+    return {"count_save": video.count_save, "counter": video.counter,
+            "save": {k: getattr(video, k + "_save")[:video.count_save].copy()
+                     for k in SNAP_FIELDS},
+            "live": {k: getattr(video.bufs, k).cpu().clone()
+                     for k in SNAP_FIELDS + ("intrinsics",)}}
+
+
+def global_ba_on_cpu(snap, cfg, model, h, w):
+    """GlobalBA on the CPU from a snapshot, with a CPU copy of the f32
+    network. Returns the poses after it, save buffers first."""
+    import copy
+    import types
+    import torch
+    from vings_mono_tpu_torch.tracker.backend import GlobalBA
+    from vings_mono_tpu_torch.tracker.video import DepthVideo
+    cfg = dict(cfg, device={"tracker": "cpu", "mapper": "cpu"})
+    video = DepthVideo(cfg, h, w, device="cpu")
+    ns = video.count_save = snap["count_save"]
+    video.counter = snap["counter"]
+    for k, a in snap["save"].items():
+        getattr(video, k + "_save")[:ns] = a
+    for k, t in snap["live"].items():
+        getattr(video.bufs, k).copy_(t)
+    tracker = types.SimpleNamespace(
+        video=video, cfg=cfg,
+        model=copy.deepcopy(model).cpu().float().eval())
+    stats = GlobalBA(tracker, cfg).run()
+    return stats, np.concatenate([video.poses_save[:ns],
+                                  video.bufs.poses[:video.counter].numpy()])
+
+
+def smoke_vio_phase(args, tk):
+    """Phase 9. Returns the kernels' launch counts during the run and
+    their largest errors against the plain twins on its inputs."""
+    import torch
+    import vings_mono_tpu_torch.tracker.backend as backend
+    from vings_mono_tpu_torch.runners import run as run_vo
+    from vings_mono_tpu_torch.utils.config import load_config
+    from vings_mono_tpu_torch.utils.profiling import StageTimer
+    save_dir = OUT / "smoke_vio"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = load_config(str(SMOKE_VIO), overrides={
+        "output": {"save_dir": str(save_dir)},
+        "device": {"tracker": DEVICE, "mapper": DEVICE}})
+    h, w = (int(x) for x in cfg["frontend"]["image_size"])
+    check(cfg["mode"] == "vio" and cfg["use_storage_manager"]
+          and cfg["use_vis"] and cfg["use_global_ba"]
+          and cfg["dataset"]["n_frames"] == 30 and (h, w) == (240, 432),
+          "phase 9 is not smoke_vio.yaml as committed")
+    print(f"phase 9 config: {SMOKE_VIO.relative_to(ROOT)} as committed "
+          f"(mode {cfg['mode']}, storage every "
+          f"{cfg['storage_manager']['every']}, use_vis, use_global_ba with "
+          f"backend {cfg['backend']}, {cfg['dataset']['n_frames']} frames "
+          f"at {h}x{w}, random DroidNet weights from the seed); only the "
+          f"device and the save dir are set", flush=True)
+    got = {}
+
+    class Recorded(backend.GlobalBA):
+        def run(self):
+            got["snap"] = video_snapshot(self.tracker.video)
+            self.timer = StageTimer(sync_device=DEVICE)
+            got["gba"] = self
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = super().run()
+            torch.cuda.synchronize()
+            got["ms"] = (time.perf_counter() - t0) * 1e3
+            got["stats"] = stats
+            return stats
+
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    t0 = time.perf_counter()
+    with replaced(backend, "GlobalBA", Recorded), \
+            recording_vis(run_vo) as vis_calls:
+        tracker, mapper, timer = run_vo.run(cfg, str(save_dir),
+                                            sync_timer=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"rasterize_forward": tk.rasterize_forward.launches,
+                "rasterize_backward": tk.rasterize_backward.launches}
+    smi = nvidia_smi()
+    print(timer.report().replace("\n", "\nphase 9 ").replace(
+        "stage times", "phase 9 stage times"), flush=True)
+    v = tracker.video
+    stats, gba = got["stats"], got["gba"]
+    parts = {k: 1e3 * gba.timer.totals[k] for k in gba.timer.totals}
+    print(f"phase 9 run [{smi}]: {cfg['dataset']['n_frames']} frames in "
+          f"{run_s:.1f} s, {v.counter + v.count_save} keyframes, the mapper "
+          f"trained on {mapper.time_idx}, {mapper.n_alive} Gaussians; "
+          f"global BA: {stats} in {got['ms']:.1f} ms ("
+          + ", ".join(f"{k} {ms:.1f}" for k, ms in parts.items())
+          + f" ms), CG iterations per Gauss-Newton step "
+          f"{gba.cg_iters_used}; launches {launches}", flush=True)
+    check(not stats["skipped"] and stats["edges"] >= stats["frames"] - 1,
+          f"global BA skipped or too few edges: {stats}")
+    check(mapper.time_idx >= 10, f"the mapper trained on "
+          f"{mapper.time_idx} keyframes only")
+    for name, cnt in launches.items():
+        check(cnt >= mapper.time_idx * int(cfg["training_args"]["iters"]),
+              f"{name} launched {cnt} times in phase 9")
+    n = v.counter
+    check(bool(torch.isfinite(v.bufs.poses[:n]).all()
+               and torch.isfinite(v.bufs.disps_up[:n]).all())
+          and np.isfinite(v.poses_save[:v.count_save]).all(),
+          "phase 9 poses or disparities are not finite")
+    check_vis("phase 9", vis_calls, h, w, mapper.time_idx, cfg.get("vis"))
+    # the kernels on the main path's own inputs (its storage pages nothing
+    # out over 30 frames: phase 8 holds them on host pages)
+    print(f"phase 9 host rows at the maps: "
+          f"{[c['host_rows'] for c in vis_calls if 'c2ws' in c]}",
+          flush=True)
+    errs = check_vis_kernels("phase 9", vis_calls, mapper, cfg.get("vis"),
+                             args.seed + 20)
+    check(len(list((save_dir / "droid_c2w").glob("*.txt")))
+          == n + v.count_save
+          and (save_dir / "ply" / "final_2dgs.ply").stat().st_size > 0,
+          "phase 9 trajectory or .ply missing")
+
+    # card vs CPU: the same pass from the same snapshot
+    card = np.concatenate([v.poses_save[:v.count_save],
+                           v.bufs.poses[:n].cpu().numpy()])
+    t0 = time.perf_counter()
+    cpu_stats, cpu = global_ba_on_cpu(got["snap"], cfg, tracker.model, h, w)
+    cpu_s = time.perf_counter() - t0
+    d = float(np.abs(card - cpu).max())
+    print(f"phase 9 global BA card vs CPU from the same snapshot of the "
+          f"video's buffers: {cpu_stats} on the CPU in {cpu_s:.1f} s; max "
+          f"abs difference of the poses {d:.2e} (tol 1e-3)", flush=True)
+    check(cpu_stats == stats and d <= 1e-3,
+          "global BA on the card left the CPU run")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: GlobalBA at full width, the banded solve at trajectory scale
+# ---------------------------------------------------------------------------
+
+BA_T = 1024        # keyframes of the banded solve against the dense one
+BA_T_FULL = 8000   # and alone: the KITTI-360 configurations' save_buffer
+BA_EDGE_BAND = 2   # |i - j| of its edges
+BA_CG_FULL = 4096  # CG cap and stop rule of the converged comparison
+BA_CG_TOL = 1e-12
+
+
+def count_syncs(fn):
+    """Run fn with every synchronizing CUDA call reported; returns (fn's
+    result, {call site: count})."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{pathlib.Path(w.filename).name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return out, sites
+
+
+def banded_problem(T, h, w, intr8, seed, d_cap=8):
+    """tests/test_backend.py's `_banded_problem` on the card: a random-walk
+    trajectory, bounded i.i.d. drift on every pose but the first,
+    ground-truth reprojection targets (oracle) over the edges |i-j| <= 2,
+    the capped adjacency list."""
+    import torch
+    from vings_mono_tpu_torch.ops import lie
+    from vings_mono_tpu_torch.ops import projective as pops
+    rng = np.random.default_rng(seed)
+    xi = np.zeros((T, 6), np.float32)
+    for k in range(1, T):
+        xi[k, :3] = xi[k - 1, :3] + rng.normal(size=3) * 0.05
+        xi[k, 3:] = xi[k - 1, 3:] + rng.normal(size=3) * 0.01
+    dev = torch.device(DEVICE)
+    gt = lie.se3_exp(torch.as_tensor(xi, device=dev))
+    disps = torch.as_tensor(rng.uniform(0.25, 0.5, size=(T, h, w)),
+                            dtype=torch.float32, device=dev)
+    intr = torch.as_tensor(intr8, device=dev)[None].expand(T, 4)
+    amp = np.asarray([0.03, 0.03, 0.03, 0.008, 0.008, 0.008])
+    pert = (amp * rng.normal(size=(T, 6))).astype(np.float32)
+    pert[0] = 0.0
+    drift = lie.se3_retr(gt, torch.as_tensor(pert, device=dev))
+    edges = [(i, j) for i in range(T)
+             for j in range(max(0, i - BA_EDGE_BAND),
+                            min(T, i + BA_EDGE_BAND + 1)) if i != j]
+    ii = torch.as_tensor([e[0] for e in edges], device=dev)
+    jj = torch.as_tensor([e[1] for e in edges], device=dev)
+    gi = np.zeros((T, d_cap), np.int64)
+    gv = np.zeros((T, d_cap), bool)
+    fill = np.zeros(T, np.int64)
+    for e, (m, _) in enumerate(edges):
+        gi[m, fill[m]], gv[m, fill[m]] = e, True
+        fill[m] += 1
+    with torch.no_grad():
+        coords, _ = pops.projective_transform(gt, disps, intr, ii, jj)
+    E = len(edges)
+    return dict(
+        gt=gt, drift=drift, args=(
+            coords.movedim(-1, 1).contiguous(),
+            torch.ones((E, 2, h, w), device=dev),
+            torch.full((T, h, w), 1e-4, device=dev), drift, disps, intr,
+            ii, jj, torch.ones(E, dtype=torch.bool, device=dev),
+            torch.as_tensor(gi, device=dev), torch.as_tensor(gv, device=dev),
+            torch.arange(T, device=dev) >= 1))
+
+
+def position_rmse(poses, gt):
+    """RMS distance of the camera centers (w2c 7-vectors), no alignment."""
+    from vings_mono_tpu_torch.ops import lie
+    a = lie.se3_inv(poses)[:, :3]
+    b = lie.se3_inv(gt)[:, :3]
+    return float(((a - b) ** 2).sum(-1).mean().sqrt())
+
+
+def global_ba_phase(tracker, cfg):
+    """Phase 10: GlobalBA with the backend defaults at the end of phase 7's
+    VO loop (240x800, KITTI-0028 frontend), then `ba_global_banded` at
+    T = 1024 against the dense `ba_global`."""
+    import torch
+    from vings_mono_tpu_torch.datasets.base import get_dataset
+    from vings_mono_tpu_torch.ops import ba as ba_ops
+    from vings_mono_tpu_torch.tracker.backend import GlobalBA
+    from vings_mono_tpu_torch.utils.device import f32_matmul
+    from vings_mono_tpu_torch.utils.profiling import StageTimer
+    from vings_mono_tpu_torch.utils.trajectory import ate_rmse, tracker_c2ws
+    gt = get_dataset(cfg).load_gt_dict()
+
+    def ate():
+        ts, c2ws = tracker_c2ws(tracker)
+        return ate_rmse(ts, c2ws, gt["timestamps"], gt["c2ws"])
+
+    gba = GlobalBA(tracker, cfg)
+    gba.timer = StageTimer(sync_device=DEVICE)
+    be = {k: getattr(gba, k) for k in ("steps", "gn_iters", "band", "chunk",
+                                       "d_cap", "cg_iters")}
+    v = tracker.video
+    T = v.counter + v.count_save
+    ate0 = ate()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stats, sites = count_syncs(gba.run)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    ate1 = ate()
+    parts = {k: 1e3 * gba.timer.totals[k] for k in gba.timer.totals}
+    syncs = sum(sites.values())
+    print(f"phase 10 global BA [{nvidia_smi()}] at the end of phase 7 "
+          f"({T} keyframes of {tuple(v.bufs.disps.shape[1:])} at 1/8 of "
+          f"{H}x{W}, backend {be}): {stats} in {ms:.1f} ms: "
+          + ", ".join(f"{k} {t:.1f} ms" for k, t in parts.items())
+          + f"; peak device memory above the run's {peak:.2f} GB; "
+          f"{syncs} synchronizing calls ("
+          + ", ".join(f"{k} {n}" for k, n in sorted(
+              sites.items(), key=lambda kv: -kv[1]))
+          + f"); CG iterations per Gauss-Newton step {gba.cg_iters_used}; "
+          f"scale-aligned ATE {ate0:.4f} before, {ate1:.4f} after (room "
+          f"units)", flush=True)
+    check(not stats["skipped"] and stats["edges"] >= T - 1,
+          f"phase 10 global BA skipped or too few edges: {stats}")
+    # the device ops it launches: the pass once more (from the trajectory
+    # the first one left) under the profiler
+    wall_ms, rows = profiled(lambda: GlobalBA(tracker, cfg).run())
+    print_profile("phase 10", "the global BA pass once more", wall_ms, rows)
+    n = v.counter
+    check(bool(torch.isfinite(v.bufs.poses[:n]).all()
+               and torch.isfinite(v.bufs.disps_up[:n]).all())
+          and np.isfinite(v.poses_save[:v.count_save]).all()
+          and ate1 is not None and np.isfinite(ate1),
+          "phase 10: the poses after global BA are not finite")
+
+    # the banded solve at trajectory scale against the dense one
+    h, w = v.bufs.disps.shape[1:]
+    intr8 = np.asarray([INTRINSIC["fv"] / 8, INTRINSIC["fu"] / 8, w / 2,
+                        h / 2], np.float32)
+    prob = banded_problem(BA_T, h, w, intr8, seed=8)
+    iters = 4
+    band = 2 * BA_EDGE_BAND
+    res = {}
+    # GlobalBA's PCG (128 iterations, stop at rz <= 1e-8 rz0) leaves ~1e-3
+    # of pose error on this chain-like system, whose low-frequency modes
+    # converge slowly; the comparison with the dense solve takes the PCG
+    # to rz <= 1e-12 rz0 (its stop rule swapped in here: the product has
+    # the JAX package's fixed rule)
+    pcg = ba_ops.banded_pcg
+
+    def converged(st):
+        def to_tol(*a, **k):
+            return pcg(*a, **dict(k, tol=BA_CG_TOL))
+        with replaced(ba_ops, "banded_pcg", to_tol):
+            return ba_ops.ba_global_banded(*prob["args"], iters=iters,
+                                           band=band, cg_iters=BA_CG_FULL,
+                                           stats=st)
+
+    with torch.no_grad(), f32_matmul():
+        for name, fn in (
+                ("banded", lambda st: ba_ops.ba_global_banded(
+                    *prob["args"], iters=iters, band=band, stats=st)),
+                ("banded to convergence", lambda st: converged(st)),
+                ("dense", lambda st: ba_ops.ba_global(*prob["args"],
+                                                      iters=iters))):
+            fn({})                                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st = {}
+            t0 = time.perf_counter()
+            out = fn(st)
+            torch.cuda.synchronize()
+            res[name] = (out, (time.perf_counter() - t0) * 1e3 / iters,
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         [int(x) for x in st.get("cg_iters_used", [])])
+    e0 = position_rmse(prob["drift"], prob["gt"])
+    (pd, dd), d_ms, d_gb, _ = res["dense"]
+    print(f"phase 10 banded solve [{nvidia_smi()}]: T = {BA_T} keyframes "
+          f"of {h}x{w} (the dense system would take 9.2 GB at the "
+          f"KITTI-360 save_buffer's 8000; the banded solve runs there "
+          f"alone below), {prob['args'][6].shape[0]} edges |i-j| <= "
+          f"{BA_EDGE_BAND}, oracle targets, band {band}, {iters} "
+          f"Gauss-Newton steps; position rmse drifted {e0:.4f}; dense "
+          f"{d_ms:.1f} ms per step, peak {d_gb:.2f} GB, position rmse "
+          f"{position_rmse(pd, prob['gt']):.4f}", flush=True)
+    for name in ("banded", "banded to convergence"):
+        (pb, db), b_ms, b_gb, cg = res[name]
+        dpose = float((pb - pd).abs().max())
+        ddisp = float((db - dd).abs().max())
+        eb = position_rmse(pb, prob["gt"])
+        cap, tol = (128, 1e-8) if name == "banded" else (BA_CG_FULL,
+                                                          BA_CG_TOL)
+        print(f"phase 10 {name}: {b_ms:.1f} ms per Gauss-Newton step, CG "
+              f"iterations {cg} (cap {cap}, stop at rz <= {tol} rz0), peak "
+              f"{b_gb:.2f} GB; against "
+              f"the dense solve max abs difference poses {dpose:.2e}, "
+              f"disparities {ddisp:.2e} (tol 5e-4, 5e-3 when converged); "
+              f"position rmse {eb:.4f}", flush=True)
+        check(eb < 0.7 * e0, f"phase 10: {name} did not reduce drift")
+    check(dpose <= 5e-4 and ddisp <= 5e-3,
+          "phase 10: the converged banded solve left the dense one")
+    return be
+
+
+def banded_at_scale(be, h, w):
+    """Phase 10's banded solve at the KITTI-360 configurations' scale
+    (save_buffer 8000 keyframes), as GlobalBA calls it: its band, CG cap
+    and stop rule, one pass of its Gauss-Newton steps, on a card that
+    holds nothing else of the run. Prints ms per step, CG iterations and
+    the peak memory."""
+    import gc
+    import torch
+    from vings_mono_tpu_torch.ops import ba as ba_ops
+    from vings_mono_tpu_torch.utils.device import f32_matmul
+    gc.collect()
+    torch.cuda.empty_cache()
+    intr8 = np.asarray([INTRINSIC["fv"] / 8, INTRINSIC["fu"] / 8, w / 2,
+                        h / 2], np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prob = banded_problem(BA_T_FULL, h, w, intr8, seed=8)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    prob_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    iters = be["gn_iters"]
+    band = 2 * be["band"]       # GlobalBA's: twice its proposal band
+    st = {}
+    with torch.no_grad(), f32_matmul():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb, _ = ba_ops.ba_global_banded(
+            *prob["args"], iters=iters, band=band,
+            cg_iters=be["cg_iters"], stats=st)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    e0 = position_rmse(prob["drift"], prob["gt"])
+    e1 = position_rmse(pb, prob["gt"])
+    print(f"phase 10 banded solve at scale [{nvidia_smi()}]: T = "
+          f"{BA_T_FULL} keyframes of {h}x{w} (the KITTI-360 save_buffer), "
+          f"{prob['args'][6].shape[0]} edges |i-j| <= {BA_EDGE_BAND}, "
+          f"oracle targets, GlobalBA's solver band {band}, CG cap "
+          f"{be['cg_iters']} and stop rule, {iters} Gauss-Newton steps (one "
+          f"of its {be['steps']} rounds): {ms:.1f} ms per step, CG "
+          f"iterations {[int(x) for x in st['cg_iters_used']]}; the problem "
+          f"{prob_gb:.2f} GB (made in {make_s:.1f} s), peak {peak:.2f} GB "
+          f"with it of the card's {total:.1f} GB; position rmse drifted "
+          f"{e0:.4f} -> {e1:.4f}", flush=True)
+    check(np.isfinite(e1) and e1 < e0,
+          "phase 10: the banded solve at scale did not reduce drift")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mapper's options at full width
+# ---------------------------------------------------------------------------
+
+REFINE_KF = 2      # the keyframe whose pose phase 11 perturbs
+REFINE_PERT = (0.03, -0.02, 0.025, 0.004, -0.003, 0.002)   # SE3 tangent
+
+
+def perturbed_windows(src, dst, gid, xi):
+    """Phase 4's windows with keyframe `gid`'s c2w right-multiplied by
+    exp(xi) in every window that holds it."""
+    import torch
+    from vings_mono_tpu_torch.datasets.replay import (ReplayDataset,
+                                                      save_viz_out)
+    from vings_mono_tpu_torch.ops import lie
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    pert = lie.se3_matrix(lie.se3_exp(torch.tensor(xi))).numpy()
+    src_data = ReplayDataset({"dataset": {"root": str(src)}})
+    for i, f in enumerate(src_data.files):
+        viz = src_data[i]
+        k = np.where(viz["global_kf_id"] == gid)[0]
+        if len(k):
+            viz["poses"] = viz["poses"].copy()
+            viz["poses"][k[0]] = viz["poses"][k[0]] @ pert
+        save_viz_out(str(dst / pathlib.Path(f).name), viz)
+    return pert
+
+
+def pose_error(c2w, ref):
+    """(translation m, rotation degrees) between two c2w."""
+    d = np.linalg.inv(ref) @ c2w
+    ang = np.degrees(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1,
+                                       1)))
+    return float(np.linalg.norm(d[:3, 3])), float(ang)
+
+
+def refine_grad_check(mapper, window):
+    """The gradient of refine's photometric loss with respect to xi of the
+    perturbed keyframe, through both kernels and through their plain
+    twins, on the trained map: within phase 3's bf16 tolerance of the
+    largest entry."""
+    import torch
+    from vings_mono_tpu_torch.mapper import train
+    from vings_mono_tpu_torch.mapper.cameras import make_camera
+    from vings_mono_tpu_torch.mapper.losses import masked_l1
+    from vings_mono_tpu_torch.mapper.mapper import _intr4
+    from vings_mono_tpu_torch.ops import lie
+    from vings_mono_tpu_torch.ops.rasterizer import tile_kernel as tkm
+    rmod = importlib.import_module("vings_mono_tpu_torch.ops.rasterizer."
+                                   "render")
+    batch = mapper._pack_batch(window)
+    intr4 = _intr4(window["intrinsic"])
+    binned = train.bin_stack(mapper.state, batch, intr4, H, W,
+                             **mapper.bin_kwargs)
+    kf = int(np.where(mapper._gids_host == REFINE_KF)[0][0])
+    s = mapper.state
+
+    def grad():
+        xi = torch.zeros(6, device=s.xyz.device, requires_grad=True)
+        c2w = torch.linalg.inv(batch.w2cs[kf]) @ lie.se3_matrix(
+            lie.se3_exp(xi))
+        cam = make_camera(torch.linalg.inv(c2w), intr4, H, W)
+        rets = rmod.render(s.xyz, s.log_scale, s.quat, s.logit_opacity,
+                           s.rgb, cam, alive=s.alive,
+                           binned=train._select_kf(binned, kf),
+                           **mapper.bin_kwargs)
+        gt = batch.images[kf]
+        valid = (gt.sum(0) > 0) & (batch.depths[kf][0] > 0)
+        return torch.autograd.grad(masked_l1(rets["rgb"], gt, valid), xi)[0]
+
+    def plain_fwd(pd, tc, meta, chunk, **_):
+        return tkm.forward_plain(pd, tc, meta, chunk)[0]
+
+    def plain_bwd(pd, tc, meta, chunk, out, g, out_dtype=None, **_):
+        return tkm.backward_plain(pd, tc, meta, chunk, out, g).to(out_dtype)
+
+    g_kernel = grad()
+    with replaced(rmod, "rasterize_forward", plain_fwd), \
+            replaced(rmod, "rasterize_backward", plain_bwd):
+        g_plain = grad()
+    err = float((g_kernel - g_plain).abs().max())
+    scale = float(g_plain.abs().max())
+    print(f"phase 11 refine gradient wrt xi of keyframe {REFINE_KF} through "
+          f"the kernels vs their plain twins: {g_kernel.tolist()} vs "
+          f"{g_plain.tolist()}, max abs err {err:.3e} = {err / scale:.3e} "
+          f"of the largest (tol {BWD_TOL['bf16']})", flush=True)
+    check(np.isfinite(scale) and scale > 0
+          and err <= BWD_TOL["bf16"] * scale,
+          "phase 11: refine's gradient through the kernels left the plain "
+          "twins'")
+
+
+def mapper_options_phase(args, tk, cfg, phase4_ms, win_dir, seed):
+    """Phase 11: phase 4's replay once with each of use_sky, use_refine and
+    coarse_frac 0.5. Returns the kernels' launch counts per run."""
+    import torch
+    from vings_mono_tpu_torch.datasets.replay import ReplayDataset
+    from vings_mono_tpu_torch.mapper.sky import sky_render_params
+    from vings_mono_tpu_torch.mapper.train import half_intr4
+    from vings_mono_tpu_torch.runners import run_mapping
+    from vings_mono_tpu_torch.utils.config import _deep_merge
+    refine_dir = OUT / "windows_refine"
+    pert = perturbed_windows(win_dir, refine_dir, REFINE_KF, REFINE_PERT)
+    runs = {
+        "sky": {"use_sky": True},
+        "refine": {"use_refine": True,
+                   "dataset": {"root": str(refine_dir)}},
+        "coarse": {"training_args": {"coarse_frac": 0.5}},
+    }
+    launches, mappers = {}, {}
+    for name, over in runs.items():
+        c = _deep_merge(cfg, dict(over, output={
+            "save_dir": str(OUT / f"run_{name}")}))
+        tk.rasterize_forward.launches = 0
+        tk.rasterize_backward.launches = 0
+        mapper, records = run_mapping.run(c, str(OUT / f"run_{name}"))
+        launches[name] = {"rasterize_forward": tk.rasterize_forward.launches,
+                          "rasterize_backward":
+                              tk.rasterize_backward.launches}
+        mappers[name] = mapper
+        kf_ms = [r["ms"] for r in records]
+        print(f"phase 11 {name} [{nvidia_smi()}]: {len(records)} keyframes, "
+              f"keyframe mean {np.mean(kf_ms):.1f} ms (phase 4: "
+              f"{phase4_ms:.1f} ms), train psnr "
+              f"{records[0]['psnr_start']:.3f} (first iteration) -> "
+              f"{records[-1]['psnr']:.3f} (last), n_alive "
+              f"{records[-1]['n_alive']}; launches {launches[name]}",
+              flush=True)
+        check(all(r["losses_finite"] for r in records),
+              f"phase 11 {name}: a loss is not finite")
+        for k, n in launches[name].items():
+            check(n >= len(records) * args.iters,
+                  f"phase 11 {name}: {k} launched {n} times")
+
+    # the sky: the sphere holds rows, and the kernels on its pairs
+    sky = mappers["sky"].sky.state
+    n_sky = int(sky.n_alive())
+    check(n_sky > 0, "phase 11 sky: the sphere is empty")
+    last = ReplayDataset(cfg)[len(ReplayDataset(cfg)) - 1]
+    w2c = torch.linalg.inv(torch.as_tensor(last["poses"][-1],
+                                           device=DEVICE))
+    xyz, log_scale = sky_render_params(sky)
+    sky_r = dataclasses.replace(sky, xyz=xyz, log_scale=log_scale)
+    kw = dict(mappers["sky"].bin_kwargs)
+    pd, binned, meta = pair_inputs(sky_r, w2c, kw, DEVICE)
+    print(f"phase 11 sky: {n_sky} rows on the sphere", flush=True)
+    check_kernels("sky sphere", pd, binned.tile_chunks, meta,
+                  int(kw["chunk"]), seed + 11, int(binned.n_pairs))
+
+    # refine: the perturbed keyframe's pose against the truth
+    m = mappers["refine"]
+    truth = np.asarray(last["poses"][REFINE_KF], np.float64)
+    k = int(np.where(m._gids_host == REFINE_KF)[0][0])
+    refined = m.refined_poses[k].cpu().numpy().astype(np.float64)
+    e0 = pose_error(truth @ pert.astype(np.float64), truth)
+    e1 = pose_error(refined, truth)
+    print(f"phase 11 refine: keyframe {REFINE_KF} perturbed by exp("
+          f"{list(REFINE_PERT)}): error {e0[0]:.4f} m, {e0[1]:.3f} deg "
+          f"before refinement, {e1[0]:.4f} m, {e1[1]:.3f} deg after the "
+          f"last keyframe's 20 iterations", flush=True)
+    check(np.isfinite(e1).all() and e1 != e0,
+          "phase 11 refine: the pose did not move or is not finite")
+    rw = ReplayDataset(_deep_merge(cfg, {"dataset": {
+        "root": str(refine_dir)}}))
+    refine_grad_check(m, rw[len(rw) - 1])
+
+    # coarse: the kernels at 120x400
+    half = dict(zip(("fv", "fu", "cv", "cu"),
+                    half_intr4((INTRINSIC["fv"], INTRINSIC["fu"],
+                                INTRINSIC["cv"], INTRINSIC["cu"]))))
+    half.update(H=H // 2, W=W // 2)
+    mc = mappers["coarse"]
+    kw = dict(mc.bin_kwargs_c)
+    pd, binned, meta = pair_inputs(mc.state, w2c, kw, DEVICE,
+                                   intrinsic=half)
+    print(f"phase 11 coarse: half-resolution bucket p_cap {kw['p_cap']}, "
+          f"v_cap {kw['v_cap']}", flush=True)
+    check_kernels("coarse 120x400", pd, binned.tile_chunks, meta,
+                  int(kw["chunk"]), seed + 12, int(binned.n_pairs))
+    return launches
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -1523,6 +2282,7 @@ def main(argv=None):
                    help="camera frames of phase 8")
     args = p.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1638,7 +2398,7 @@ def main(argv=None):
                                            device=device))
     kw = dict(bin_kwargs, p_cap=mapper.bin_kwargs["p_cap"])
     pd, binned, meta = pair_inputs(mapper.state, w2c, kw, device)
-    fwd_err, bwd_err, evals, hits, culled = check_kernels(
+    fwd_err, bwd_err, evals, hits, culled, _ = check_kernels(
         "trained map", pd, binned.tile_chunks, meta, chunk, args.seed + 1,
         int(binned.n_pairs))
     tc = binned.tile_chunks
@@ -1688,31 +2448,46 @@ def main(argv=None):
         check(times[key] >= bnd[0], f"{name} kernel is faster than its "
               f"bound: the bound's count is wrong")
     profile_keyframe(mapper, last)
+    del mapper
 
-    # ---- 7. the VO slice
-    vo_launches, _, _ = vo_slice(args, tk)
-    # ---- 8. the VIO + storage slice
+    # ---- 7. the VO slice, then 10. global BA on its tracker
+    vo_launches, _, _, vo_tracker, vo_cfg = vo_slice(args, tk)
+    backend_defaults = global_ba_phase(vo_tracker, vo_cfg)
+    del vo_tracker
+    banded_at_scale(backend_defaults, H // 8, W // 8)
+    # ---- 8. the VIO + storage slice (with vis)
     vio_launches = vio_slice(args, tk)
-    kernels = [
-        {"name": "rasterize_forward", "route": "cuda",
-         "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
-         "replaces": "vings_mono_tpu/ops/rasterizer/tile_kernel.py:263",
-         "launches": vio_launches["rasterize_forward"],
-         "launches_vo": vo_launches["rasterize_forward"],
-         "launches_mapping_replay": launches["rasterize_forward"],
-         "max_abs_err": fwd_err, "ms": times["fwd"],
-         "plain_ms": times["fwd_plain"], "bound_ms": fwd_bound[0],
-         "bound_by": fwd_bound[1], "library_ms": None},
-        {"name": "rasterize_backward", "route": "cuda",
-         "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
-         "replaces": "vings_mono_tpu/ops/rasterizer/tile_kernel.py:423",
-         "launches": vio_launches["rasterize_backward"],
-         "launches_vo": vo_launches["rasterize_backward"],
-         "launches_mapping_replay": launches["rasterize_backward"],
-         "max_abs_err": bwd_err["bf16"], "ms": times["bwd"],
-         "plain_ms": times["bwd_plain"], "bound_ms": bwd_bound[0],
-         "bound_by": bwd_bound[1], "library_ms": None},
-    ]
+    # ---- 9. smoke_vio.yaml as committed: the slice's main path
+    smoke_launches, smoke_errs = smoke_vio_phase(args, tk)
+    # ---- 11. the mapper's options on phase 4's replay
+    opt_launches = mapper_options_phase(args, tk, cfg, float(np.mean(kf_ms)),
+                                        win_dir, args.seed)
+    kernels = []
+    for name, line, err, err_rel, err_800 in (
+            ("rasterize_forward", 263, smoke_errs[0], smoke_errs[2],
+             fwd_err),
+            ("rasterize_backward", 423, smoke_errs[1], smoke_errs[3],
+             bwd_err["bf16"])):
+        key = "fwd" if name.endswith("forward") else "bwd"
+        bnd = fwd_bound if key == "fwd" else bwd_bound
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
+            "replaces": f"vings_mono_tpu/ops/rasterizer/tile_kernel.py:{line}",
+            "launches": smoke_launches[name],
+            "launches_vio": vio_launches[name],
+            "launches_vo": vo_launches[name],
+            "launches_mapping_replay": launches[name],
+            **{f"launches_{o}": n[name] for o, n in opt_launches.items()},
+            # the backward's rows reach ~1e9 at edge-on pairs (1/den), so
+            # its absolute error is read against the row maximum
+            "max_abs_err": err, "max_err_over_scale": err_rel,
+            "max_abs_err_trained_240x800": err_800,
+            "ms": times[key],
+            "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None})
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} "
+          f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

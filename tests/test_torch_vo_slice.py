@@ -136,8 +136,7 @@ def test_vo_slice_on_synthetic3d_with_the_trained_weights(tmp_path):
     check_files(tdir, len(tts))
 
 
-FLAGS = ["use_loop", "use_metric", "use_dynamic", "use_global_ba",
-         "use_vis"]
+FLAGS = ["use_loop", "use_metric", "use_dynamic"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)
@@ -154,7 +153,7 @@ def test_unported_flag_raises_its_name(flag, tmp_path):
 @pytest.mark.parametrize("what", ["mode_unknown", "resume",
                                   "checkpoint_every", "dataset",
                                   "main_resume", "main_checkpoint_every",
-                                  "use_sky", "use_refine"])
+                                  "parallel_dp"])
 def test_unported_option_raises(what, tmp_path):
     base = {"dataset": {"module": "synthetic", "n_frames": 2},
             "frontend": {"image_size": [32, 32], "buffer": 12,
@@ -178,8 +177,8 @@ def test_unported_option_raises(what, tmp_path):
                              "--checkpoint-every"),
         "dataset": (dict(base, dataset={"module": "kitti_sync"}), {},
                     "kitti_sync"),
-        "use_sky": (dict(base, use_sky=True), {}, "use_sky"),
-        "use_refine": (dict(base, use_refine=True), {}, "use_refine"),
+        "parallel_dp": (dict(base, parallel={"dp": 2}), {},
+                        "parallel.dp"),
     }
     over, kwargs, match = calls[what]
     with pytest.raises(NotImplementedError, match=match):

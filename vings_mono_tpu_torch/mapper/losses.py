@@ -35,14 +35,16 @@ def weighted_masked_l1(pred, gt, mask, weight):
 
 
 def mapper_loss(pred, gt_rgb, gt_depth, gt_depth_cov, camera: Camera,
-                weights=None, pixel_mask=None):
+                weights=None, sky_rgb=None, pixel_mask=None):
     """pred: render() dict (camera-frame normals); gt_rgb (3,H,W) in [0,1],
     gt_depth/cov (1,H,W). Returns (total, metrics dict).
 
     Sky pixels are where gt_rgb sums to 0 (the middleware zeroes rgb at
     invalid depth); valid = not sky and depth > 0; depth is weighted by
-    1/cov. pixel_mask (H,W) bool excludes dynamic-object pixels from every
-    term."""
+    1/cov. sky_rgb (3,H,W), the sky-inclusive ground truth, switches the
+    photometric term to the whole image (sky mode: pred is the map fused
+    with the sky sphere). pixel_mask (H,W) bool excludes dynamic-object
+    pixels from every term."""
     weights = {**DEFAULT_WEIGHTS, **(weights or {})}
     sky = torch.sum(gt_rgb, dim=0) == 0.0          # (H, W)
     valid = (~sky) & (gt_depth[0] > 0.0)
@@ -50,8 +52,13 @@ def mapper_loss(pred, gt_rgb, gt_depth, gt_depth_cov, camera: Camera,
         valid &= pixel_mask
         sky &= pixel_mask
 
-    l1 = masked_l1(pred["rgb"], gt_rgb, valid)
-    ssim_val = ssim(pred["rgb"], gt_rgb, valid)
+    if sky_rgb is not None:
+        ones = torch.ones_like(valid) if pixel_mask is None else pixel_mask
+        l1 = masked_l1(pred["rgb"], sky_rgb, ones)
+        ssim_val = ssim(pred["rgb"], sky_rgb, ones)
+    else:
+        l1 = masked_l1(pred["rgb"], gt_rgb, valid)
+        ssim_val = ssim(pred["rgb"], gt_rgb, valid)
     rgb_loss = 0.8 * l1 + 0.2 * (1.0 - ssim_val)
 
     # normal consistency: rendered normal vs normals from the rendered depth

@@ -3,13 +3,18 @@
 Mirrors run_only_mapping: consume the tracker's `viz_out` dict, detect new
 keyframes by timestamp, prune+densify, then run the training loop. The
 class does the bookkeeping: fixed-capacity padding, the round-robin binning
-cache and the pair-capacity bucket ladder.
+caches (full resolution and the coarse phase's half resolution, each with
+its own pair-capacity bucket ladder), the sky sphere (`use_sky`), pose
+refinement (`use_refine`) and the coarse-to-fine phase
+(`training_args.coarse_frac`).
 
-Not ported yet: the multi-device `dp` mesh, the sky model, pose refinement
-and the coarse-to-fine phase; a config that asks for one raises.
+Not ported yet: the multi-device `dp` mesh; a config that asks for it
+raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,11 +23,13 @@ from ..utils import ply as ply_io
 from ..utils.device import resolve_device
 from .cameras import camera_from_intrinsic
 from .densify import add_frame, draw_densify
+from .refine import apply_pose_bias_to_gaussians, refine_poses
+from .sky import SkyModel, sky_render_params
 from .state import (STATE_FIELDS, adam_init, empty_state, state_from_numpy,
                     state_to_numpy)
 from .train import (KeyframeBatch, bin_rows, bin_stack, draw_kf_schedule,
-                    permute_scatter_binned, stablemask_control,
-                    storage_control, train_loop)
+                    half_batch, half_intr4, permute_scatter_binned, pool2x2,
+                    stablemask_control, storage_control, train_loop)
 from ..ops.rasterizer import render
 
 
@@ -37,16 +44,9 @@ class GaussianMapper:
         self.cfg = cfg
         self.device = resolve_device(device or cfg["device"]["mapper"])
         m = cfg["mapper"]
-        unported = [name for name, on in (
-            ("use_sky", cfg.get("use_sky")),
-            ("use_refine", cfg.get("use_refine")),
-            ("parallel.dp", int((cfg.get("parallel") or {}).get("dp", 1)) > 1),
-            ("training_args.coarse_frac",
-             float(cfg["training_args"].get("coarse_frac", 0.0)) > 0))
-            if on]
-        if unported:
+        if int((cfg.get("parallel") or {}).get("dp", 1)) > 1:
             raise NotImplementedError(
-                f"not ported to the torch mapper yet: {', '.join(unported)}")
+                "not ported to the torch mapper yet: parallel.dp")
         self.capacity = int(m["capacity"])
         self.kf_capacity = int(m["kf_capacity"])
         # pair_capacity is the UPPER bucket; the mapper walks down to the
@@ -57,7 +57,7 @@ class GaussianMapper:
         self._p_cap_min = max(int(m.get("pair_capacity_min",
                                         self._p_cap_max // 4)),
                               int(m["chunk"]))
-        self._shrink_votes = 0
+        self._shrink_votes = self._shrink_votes_c = 0
         self.bin_kwargs = {"p_cap": self._p_cap_max,
                            "chunk": int(m["chunk"]),
                            "side": int(m["side"]),
@@ -68,6 +68,13 @@ class GaussianMapper:
                            "tile_cap": int(m.get("tile_depth_cap", 512))}
         self.state = empty_state(self.capacity, self.device)
         self.opt = adam_init(self.state)
+        self.use_sky = bool(cfg.get("use_sky"))
+        self.sky = None
+        if self.use_sky:
+            self.sky = SkyModel(cfg, capacity=int(m.get("sky_capacity",
+                                                        1 << 15)),
+                                device=self.device)
+        self.refined_poses = None
         self.history = []          # timestamps already mapped
         self.time_idx = 0
         self.initialized = False
@@ -87,15 +94,37 @@ class GaussianMapper:
         self._binned = None
         self._cached_gids = None
         self._bin_age = None
+        # coarse-to-fine: fraction of each keyframe's train iterations run
+        # at half resolution (0 = off), with its own binning cache and pair
+        # bucket: pairs and tiles at half resolution are ~1/3 of full
+        self.coarse_frac = float(
+            cfg["training_args"].get("coarse_frac", 0.0))
+        vc = int(m.get("visible_capacity", 0))
+        self.bin_kwargs_c = dict(
+            self.bin_kwargs,
+            p_cap=max(self._p_cap_min, self._p_cap_max // 2),
+            # a quarter of the pixels: the nearest half of the visible
+            # Gaussians; the fine phase still trains the full visible set
+            v_cap=int(m.get("visible_capacity_coarse",
+                            vc // 2 if vc else 0)))
+        self._binned_c = None
+        self._cached_gids_c = None
+        self._bin_age_c = None
 
     def invalidate_binning(self):
-        """Drop the binning cache — required after any Gaussian teleport:
-        BinnedScene stores tile assignments by Gaussian index."""
+        """Drop both binning caches — required after any Gaussian teleport
+        or storage page-in: BinnedScene stores tile assignments by Gaussian
+        index."""
         self._binned = None
+        self._binned_c = None
 
     @property
     def render_kwargs(self):
         return tuple(self.bin_kwargs.items())
+
+    @property
+    def render_kwargs_c(self):
+        return tuple(self.bin_kwargs_c.items())
 
     # ---- random draws (tests replace these to replay another stream) ----
     def _densify_draws(self, n_points):
@@ -113,8 +142,11 @@ class GaussianMapper:
         overflow, PSNR) and feed the bucket tuner; the bucket reacts up to
         `stats_every` keyframes late."""
         pend, self._pending_stats = self._pending_stats, []
-        for n_padded, overflow, psnr in pend:
+        for n_padded, overflow, psnr, coarse in pend:
             self._tune_pair_capacity(int(n_padded), bool(overflow))
+            if coarse is not None:
+                self._tune_pair_capacity(int(coarse[0]), bool(coarse[1]),
+                                         sfx="_c")
             self._last_psnr_host = float(psnr)
 
     def _bucket_ladder(self):
@@ -133,13 +165,16 @@ class GaussianMapper:
         out.add(self._p_cap_max)
         return sorted(out)
 
-    def _tune_pair_capacity(self, n, overflow):
+    def _tune_pair_capacity(self, n, overflow, sfx=""):
         """Pick the next keyframes' pair-capacity bucket from an observed
         PADDED pair-slot demand n (pad_off[T], what a bucket must cover).
         GROW one step only when pairs threaten the cap (overflow: straight
         to max), SHRINK after 3 votes to the smallest bucket holding
-        1.15*n — a switch drops the binning cache."""
-        cap = self.bin_kwargs["p_cap"]
+        1.15*n — a switch drops the binning cache. sfx selects the cache:
+        "" full resolution, "_c" the coarse phase's."""
+        kw = getattr(self, "bin_kwargs" + sfx)
+        votes = "_shrink_votes" + sfx
+        cap = kw["p_cap"]
         buckets = self._bucket_ladder()
         if overflow:
             want = self._p_cap_max
@@ -150,17 +185,17 @@ class GaussianMapper:
             fits = [b for b in buckets if n * 23 // 20 + 1 <= b]
             want = min(fits[0] if fits else self._p_cap_max, cap)
         if want > cap:
-            self._shrink_votes = 0
+            setattr(self, votes, 0)
         elif want < cap:
-            self._shrink_votes += 1
-            if self._shrink_votes < 3:
+            setattr(self, votes, getattr(self, votes) + 1)
+            if getattr(self, votes) < 3:
                 return
-            self._shrink_votes = 0
+            setattr(self, votes, 0)
         else:
-            self._shrink_votes = 0
+            setattr(self, votes, 0)
             return
-        self.bin_kwargs = dict(self.bin_kwargs, p_cap=want)
-        self._binned = None   # cache rows are cap-shaped
+        setattr(self, "bin_kwargs" + sfx, dict(kw, p_cap=want))
+        setattr(self, "_binned" + sfx, None)   # cache rows are cap-shaped
 
     # ---- packing -----------------------------------------------------
     def _tensor(self, x, dtype=torch.float32):
@@ -212,15 +247,23 @@ class GaussianMapper:
                              pixel_mask=None if pm is None else pad(pm))
 
     # ---- round-robin binning cache -------------------------------------
-    def _refresh_binned(self, batch, intr4):
+    def _refresh_binned(self, batch, intr4, height=None, width=None,
+                        sfx=""):
         """Re-bin only the new keyframe + the stalest cached rows; cached
         rows follow the sliding window by global keyframe id. Stale rows
         are safe: the exact-ellipse binning carries 2.5 px of margin and
         pruned Gaussians render at zero opacity. Newly-densified Gaussians
-        reach every row within ceil(K/rebin_rows) keyframes."""
+        reach every row within ceil(K/rebin_rows) keyframes.
+
+        sfx selects the cache and its pair bucket: "" = full resolution,
+        "_c" = the coarse phase's half resolution (same policy)."""
+        height = self.H if height is None else height
+        width = self.W if width is None else width
+        bkw = getattr(self, "bin_kwargs" + sfx)
         kc, R = self.kf_capacity, self.rebin_rows
         gids = self._gids_host
-        cached, cached_gids = self._binned, self._cached_gids
+        cached = getattr(self, "_binned" + sfx)
+        cached_gids = getattr(self, "_cached_gids" + sfx)
         full_rebin = (R <= 0 or R >= kc or cached is None)
         if not full_rebin:
             perm = np.zeros(kc, np.int64)
@@ -233,22 +276,24 @@ class GaussianMapper:
             if int((~have).sum()) > R:
                 full_rebin = True
         if full_rebin:
-            self._binned = bin_stack(self.state, batch, intr4, self.H,
-                                     self.W, **self.bin_kwargs)
-            self._cached_gids = gids.copy()
-            self._bin_age = np.zeros(kc, np.int64)
-            return self._binned
-        age = np.where(have, self._bin_age[perm] + 1, 1 << 30)
-        rows = np.argsort(-age)[:R]                # stalest first
-        rows_t = torch.as_tensor(rows, device=self.device)
-        part = bin_rows(self.state, batch.w2cs[rows_t], intr4, self.H,
-                        self.W, **self.bin_kwargs)
-        self._binned = permute_scatter_binned(
-            cached, torch.as_tensor(perm, device=self.device), part, rows_t)
-        age[rows] = 0
-        self._bin_age = age
-        self._cached_gids = gids.copy()
-        return self._binned
+            binned = bin_stack(self.state, batch, intr4, height, width,
+                               **bkw)
+            age = np.zeros(kc, np.int64)
+        else:
+            age = np.where(have, getattr(self, "_bin_age" + sfx)[perm] + 1,
+                           1 << 30)
+            rows = np.argsort(-age)[:R]                # stalest first
+            rows_t = torch.as_tensor(rows, device=self.device)
+            part = bin_rows(self.state, batch.w2cs[rows_t], intr4, height,
+                            width, **bkw)
+            binned = permute_scatter_binned(
+                cached, torch.as_tensor(perm, device=self.device), part,
+                rows_t)
+            age[rows] = 0
+        setattr(self, "_binned" + sfx, binned)
+        setattr(self, "_bin_age" + sfx, age)
+        setattr(self, "_cached_gids" + sfx, gids.copy())
+        return binned
 
     # ---- new-keyframe detection (judge_new_frame, host logic) ---------
     def _judge_new_frame(self, viz_out):
@@ -287,16 +332,30 @@ class GaussianMapper:
                 viz_out["viz_out_idx_to_f_idx"]).tolist()
             for i in range(self._n_valid_host):
                 self._add_frame(batch, i, intr4, first=True)
+                self._sky_add_frame(batch, i, intr4)
             self.initialized = True
         else:
             new_id = self._judge_new_frame(viz_out)
             if new_id is None:
                 return
             # if the window was cropped to kf_capacity, re-locate the index
-            self._add_frame(batch, min(new_id, self._n_valid_host - 1),
-                            intr4, first=False)
+            new_id = min(new_id, self._n_valid_host - 1)
+            self._add_frame(batch, new_id, intr4, first=False)
+            self._sky_add_frame(batch, new_id, intr4)
 
         binned = self._refresh_binned(batch, intr4)
+
+        self.refined_poses = None
+        if self.cfg.get("use_refine"):
+            new_c2ws, _ = refine_poses(
+                self.state, batch, binned, intr4, iters=20, height=self.H,
+                width=self.W, render_kwargs=self.render_kwargs)
+            old_c2ws = torch.linalg.inv_ex(batch.w2cs).inverse
+            apply_pose_bias_to_gaussians(self.state, batch.global_kf_id,
+                                         old_c2ws, new_c2ws)
+            batch = batch._replace(
+                w2cs=torch.linalg.inv_ex(new_c2ws).inverse)
+            self.refined_poses = new_c2ws
 
         iters = int(ta["iters"])
         if len(self._pending_stats) >= self.stats_every:
@@ -307,12 +366,45 @@ class GaussianMapper:
             # converged windows need fewer refinement iterations
             iters = max(iters // 2, 10)
 
+        lrs = self._lrs(ta)
+        sky_images = None
+        if self.use_sky:
+            sky_images = viz_out.get("sky_images")
+            sky_images = batch.images if sky_images is None else \
+                self._tensor(sky_images).movedim(-1, 1)
+
+        # coarse-to-fine: the first coarse_frac of the budget at half
+        # resolution (tiles and pairs shrink ~4x)
+        iters_c = 0
+        if (self.coarse_frac > 0 and iters > 1
+                and self.H % 2 == 0 and self.W % 2 == 0):
+            iters_c = min(int(round(iters * self.coarse_frac)), iters - 1)
+        binned_c = None
+        if iters_c:
+            batch_c = half_batch(batch)
+            intr4_c = half_intr4(intr4)
+            hc, wc = self.H // 2, self.W // 2
+            binned_c = self._refresh_binned(batch_c, intr4_c, height=hc,
+                                            width=wc, sfx="_c")
+            train_loop(
+                self.state, self.opt, batch_c, binned_c, intr4_c,
+                iters=iters_c, height=hc, width=wc,
+                kf_schedule=self._kf_schedule(iters_c, batch.n_valid),
+                weights=ta["loss_weights"], lrs=lrs,
+                render_kwargs=self.render_kwargs_c,
+                sky=self._sky_args(batch_c, intr4_c, hc, wc,
+                                   self.bin_kwargs_c,
+                                   None if sky_images is None
+                                   else pool2x2(sky_images)))
+
         _, _, metrics = train_loop(
-            self.state, self.opt, batch, binned, intr4, iters=iters,
-            height=self.H, width=self.W,
-            kf_schedule=self._kf_schedule(iters, batch.n_valid),
-            weights=ta["loss_weights"], lrs=self._lrs(ta),
-            render_kwargs=self.render_kwargs)
+            self.state, self.opt, batch, binned, intr4,
+            iters=iters - iters_c, height=self.H, width=self.W,
+            kf_schedule=self._kf_schedule(iters - iters_c, batch.n_valid),
+            weights=ta["loss_weights"], lrs=lrs,
+            render_kwargs=self.render_kwargs,
+            sky=self._sky_args(batch, intr4, self.H, self.W,
+                               self.bin_kwargs, sky_images))
         self.metrics = metrics
 
         self.time_idx += 1
@@ -323,9 +415,54 @@ class GaussianMapper:
                             width=self.W, render_kwargs=self.render_kwargs)
         # deferred end-of-run stats: pulled at the next drain, so the host
         # does not wait for the device after every keyframe
-        self._pending_stats.append((torch.max(binned.n_padded),
-                                    torch.any(binned.overflow),
-                                    metrics["psnr"]))
+        self._pending_stats.append((
+            torch.max(binned.n_padded), torch.any(binned.overflow),
+            metrics["psnr"], None if binned_c is None else
+            (torch.max(binned_c.n_padded), torch.any(binned_c.overflow))))
+
+    def _sky_add_frame(self, batch, i, intr4):
+        """Seed the sky sphere from keyframe i's sky pixels."""
+        if not self.use_sky:
+            return
+        # 1000 samples per frame, capped at the sphere's capacity
+        gumbel, quat = self._densify_draws(min(1000,
+                                               self.sky.state.capacity))
+        self.sky.add_frame(batch.w2cs[i], intr4, batch.images[i], self.H,
+                           self.W, gumbel, quat)
+
+    def _sky_args(self, batch, intr4, height, width, bin_kwargs, images):
+        """train_loop's `sky` argument: the sphere binned afresh for every
+        window camera (no cache)."""
+        if not self.use_sky:
+            return None
+        st = self.sky.state
+        xyz, log_scale = sky_render_params(st)
+        binned = bin_stack(dataclasses.replace(st, xyz=xyz,
+                                               log_scale=log_scale),
+                           batch, intr4, height, width, **bin_kwargs)
+        return (st, self.sky.opt, images, binned)
+
+    # ---- direct window training (loop-closure retrain) -----------------
+    def train_on_window(self, viz_out, iters, weights=None):
+        """Train on an explicit keyframe window without the add-frame /
+        densify bookkeeping — the loop-closure retrain path. Bins every
+        window camera afresh and drops the caches after (their rows are
+        the live window's)."""
+        intr4 = _intr4(viz_out["intrinsic"])
+        if self.H is None:
+            self.H = int(viz_out["intrinsic"]["H"])
+            self.W = int(viz_out["intrinsic"]["W"])
+        batch = self._pack_batch(viz_out)
+        binned = bin_stack(self.state, batch, intr4, self.H, self.W,
+                           **self.bin_kwargs)
+        ta = self.cfg["training_args"]
+        _, _, self.metrics = train_loop(
+            self.state, self.opt, batch, binned, intr4, iters=int(iters),
+            height=self.H, width=self.W,
+            kf_schedule=self._kf_schedule(int(iters), batch.n_valid),
+            weights={**ta["loss_weights"], **(weights or {})},
+            lrs=self._lrs(ta), render_kwargs=self.render_kwargs)
+        self.invalidate_binning()
 
     @staticmethod
     def _lrs(ta):

@@ -12,13 +12,16 @@ they are a Python loop of eager ops, and the state updates in place.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops.rasterizer import BinnedScene, bin_for_camera, render
 from .cameras import make_camera
 from .losses import mapper_loss, psnr
+from .sky import SPHERE_RADIUS
 from .state import (GaussianState, SparseAdamState, kill_rows,
                     sparse_adam_step)
 
@@ -73,6 +76,35 @@ def permute_scatter_binned(full: BinnedScene, perm, part: BinnedScene,
     return BinnedScene(*(one(f, p) for f, p in zip(full, part)))
 
 
+def pool2x2(x):
+    """2x2 average pool over the trailing two axes."""
+    return 0.25 * (x[..., 0::2, 0::2] + x[..., 1::2, 0::2] +
+                   x[..., 0::2, 1::2] + x[..., 1::2, 1::2])
+
+
+def half_batch(batch: KeyframeBatch) -> KeyframeBatch:
+    """2x2 average-pooled copy of the window for the coarse phase of the
+    coarse-to-fine schedule. Poses/ids unchanged; the caller halves the
+    intrinsics with `half_intr4`."""
+    pm = batch.pixel_mask
+    if pm is not None:
+        pm = (pm[..., 0::2, 0::2] & pm[..., 1::2, 0::2] &
+              pm[..., 0::2, 1::2] & pm[..., 1::2, 1::2])
+    return batch._replace(images=pool2x2(batch.images),
+                          depths=pool2x2(batch.depths),
+                          depths_cov=pool2x2(batch.depths_cov),
+                          pixel_mask=pm)
+
+
+def half_intr4(intr4):
+    """(fx, fy, cx, cy) for the 2x2-pooled image: pooled pixel centers sit
+    at full-res coords 2u+0.5, so u_half = (u_full - 0.5) / 2. In f32, as
+    the cameras take them."""
+    f = np.asarray(intr4, np.float32) * np.float32(0.5)
+    f[2:] += np.float32(-0.25)
+    return tuple(float(x) for x in f)
+
+
 def draw_kf_schedule(generator, iters, n_valid):
     """Default keyframe draw: one window slot per iteration."""
     return torch.randint(0, max(n_valid, 1), (iters,),
@@ -82,11 +114,17 @@ def draw_kf_schedule(generator, iters, n_valid):
 def train_loop(state: GaussianState, opt: SparseAdamState,
                batch: KeyframeBatch, binned_stack: BinnedScene, intr4, *,
                iters: int, height: int, width: int, kf_schedule,
-               weights=None, lrs=None, render_kwargs=()):
+               weights=None, lrs=None, render_kwargs=(), sky=None):
     """Run `iters` training iterations on the window, updating state and
     opt in place. kf_schedule lists the window slot each iteration renders
     (draw_kf_schedule). Returns (state, opt, metrics) with the last
     iteration's metrics plus `loss_per_iter` and `psnr_per_iter` (iters,).
+
+    sky = (sky_state, sky_opt, sky_images (K,3,H,W), sky_binned) trains the
+    sky sphere jointly: each iteration also renders the sphere through its
+    cached binning, composites it behind the map, takes the photometric
+    loss over the whole image against sky_images, and steps the sphere's
+    visible rows with their own sparse Adam (in place).
     """
     rkw = dict(render_kwargs)
     metrics, losses, psnrs = {}, [], []
@@ -101,11 +139,27 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
                       params["logit_opacity"], params["rgb"], camera,
                       alive=state.alive, score_carrier=carrier,
                       binned=_select_kf(binned_stack, kf), **rkw)
+        sky_rgb_gt, sky_params, srets = None, {}, None
+        if sky is not None:
+            sky_state, sky_opt, sky_images, sky_binned = sky
+            sky_params = {k: p.detach().requires_grad_()
+                          for k, p in sky_state.params().items()}
+            srets = _render_sky_params(sky_params, sky_state.alive, camera,
+                                       _select_kf(sky_binned, kf), rkw)
+            rets = dict(rets)
+            rets["rgb"] = rets["rgb"] + (1.0 - rets["accum"]) * srets["rgb"]
+            sky_rgb_gt = sky_images[kf]
         pm = None if batch.pixel_mask is None else batch.pixel_mask[kf]
         total, metrics = mapper_loss(rets, batch.images[kf],
                                      batch.depths[kf], batch.depths_cov[kf],
-                                     camera, weights, pixel_mask=pm)
-        grads = torch.autograd.grad(total, list(params.values()) + [carrier])
+                                     camera, weights, sky_rgb=sky_rgb_gt,
+                                     pixel_mask=pm)
+        grads = torch.autograd.grad(
+            total, list(params.values()) + [carrier]
+            + list(sky_params.values()))
+        n_main = len(params)
+        sky_grads = dict(zip(sky_params, grads[n_main + 1:]))
+        grads = grads[:n_main + 1]
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["psnr"] = psnr(rets["rgb"], batch.images[kf],
@@ -123,10 +177,26 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
             gp = {k: g * wgt for k, g in gp.items()}
             step_mask = rets["visible"] & state.alive & (~state.stable)
             sparse_adam_step(state, gp, opt, step_mask, lrs)
+            if sky is not None:
+                sparse_adam_step(sky_state, sky_grads, sky_opt,
+                                 srets["visible"] & sky_state.alive, lrs)
     if losses:
         metrics["loss_per_iter"] = torch.stack(losses)
         metrics["psnr_per_iter"] = torch.stack(psnrs)
     return state, opt, metrics
+
+
+def _render_sky_params(sky_params, alive, camera, binned, rkw):
+    """Render the sky sphere from its raw parameters (directions scaled to
+    the radius-10 sphere, smooth normalization: a plain norm has NaN
+    gradients at the all-zero rows of dead slots)."""
+    xyz = sky_params["xyz"]
+    nrm = torch.sqrt(torch.sum(xyz ** 2, dim=-1, keepdim=True) + 1e-12)
+    return render(xyz / nrm * SPHERE_RADIUS,
+                  sky_params["log_scale"] + math.log(SPHERE_RADIUS),
+                  sky_params["quat"], sky_params["logit_opacity"],
+                  sky_params["rgb"], camera, alive=alive, binned=binned,
+                  **rkw)
 
 
 def _score_step(state: GaussianState, cur0, cur1, gid_kf):

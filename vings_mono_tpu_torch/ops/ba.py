@@ -13,8 +13,12 @@ only their live edges or a padded list: the results are equal.
 The routine also exposes the two half-steps an inertial fusion needs:
 `ba_hessian` returns the depth-marginalized pose Hessian/rhs (camera frame),
 and `ba_retract` applies an externally solved pose delta and solves depths.
-The full-trajectory variants (edge-sparse and banded global BA) are not
-ported yet.
+
+The full-trajectory global BA of the terminate pass comes in two forms:
+`ba_global` (dense (T*6)^2 pose system; for small T and the tests) and
+`ba_global_banded` (block-band pose storage solved by `banded_pcg`; the
+product path). Both Schur-eliminate each frame's depths over a capped
+adjacency list instead of a dense (T, T, 6, HW) coupling.
 
 Every product here must run in true f32: the callers keep TF32 matmuls off
 (utils.device.f32_matmul).
@@ -261,3 +265,249 @@ def ba_retract(poses, disps, dx, aux, fixedp=0):
     E, Q, w = aux
     dz = depth_backsub(dx, E, Q, w)
     return retract(poses, disps, dx, dz, fixedp)
+
+
+# ---------------------------------------------------------------------------
+# global BA (terminate pass)
+# ---------------------------------------------------------------------------
+
+def _global_terms(target, weight, eta, poses, disps, intrinsics, ii, jj,
+                  edge_valid, group_idx, group_valid):
+    """Per-edge pose blocks and the per-depth-frame adjacency rows shared by
+    both global solvers.
+
+    Returns (blocks, v, R, pid, Q, wrhs): blocks = (Hii, Hij, Hji, Hjj) each
+    (N, 6, 6); v (T, 6); R (T, d+1, 6, HW) with R[m, 0] the sum of Ei over
+    edges whose source is m and R[m, 1+k] the Ej of adjacency slot k; pid
+    (T, d+1) the pose each row of R couples to; Q = 1/C (T, HW); wrhs (T,
+    HW) the depth rhs."""
+    T, ht, wd = disps.shape
+    HW = ht * wd
+    N = ii.shape[0]
+    coords, valid, (Ji, Jj, Jz) = pops.projective_transform(
+        poses, disps, intrinsics, ii, jj, jacobian=True)
+    r = (target.movedim(1, -1) - coords) * valid
+    wgt = 0.001 * weight.movedim(1, -1) * valid
+    wgt = wgt * edge_valid[:, None, None, None].to(wgt.dtype)
+
+    Jif = Ji.reshape(N, HW, 2, 6)
+    Jjf = Jj.reshape(N, HW, 2, 6)
+    Jzf = Jz.reshape(N, HW, 2, 1)
+    rf = r.reshape(N, HW, 2, 1)
+    wf = wgt.reshape(N, HW, 2, 1)
+    wJi = wf * Jif
+    wJj = wf * Jjf
+
+    def blk(A, B):
+        return torch.einsum("npcd,npce->nde", A, B)
+
+    blocks = (blk(wJi, Jif), blk(wJi, Jjf), blk(wJj, Jif), blk(wJj, Jjf))
+    v = _scatter_rows(torch.einsum("npcd,npcz->nd", wJi, rf), ii, T) + \
+        _scatter_rows(torch.einsum("npcd,npcz->nd", wJj, rf), jj, T)
+
+    Ei = torch.einsum("npcd,npcz->ndp", wJi, Jzf)        # (N, 6, HW)
+    Ej = torch.einsum("npcd,npcz->ndp", wJj, Jzf)
+    Ck = torch.einsum("npcz,npcz->np", wf * Jzf, Jzf)
+    wk = torch.einsum("npcz,npcz->np", wf * Jzf, rf)
+    C = _scatter_rows(Ck, ii, T) + eta.reshape(T, HW) + 1e-7
+    wrhs = _scatter_rows(wk, ii, T)
+    Q = 1.0 / C
+
+    R0 = _scatter_rows(Ei, ii, T)                        # (T, 6, HW)
+    gmask = group_valid[..., None, None].to(Ej.dtype)
+    Rk = Ej[group_idx] * gmask                           # (T, d, 6, HW)
+    R = torch.cat([R0[:, None], Rk], dim=1)              # (T, d+1, 6, HW)
+    pid = torch.cat([torch.arange(T, device=ii.device)[:, None],
+                     torch.where(group_valid, jj[group_idx],
+                                 torch.zeros_like(group_idx))], dim=1)
+    return blocks, v, R, pid, Q, wrhs
+
+
+def _schur_blocks(R, Q, wrhs):
+    """Per-depth-frame Schur terms: (T, d+1, d+1, 6, 6) blocks R Q R^T and
+    (T, d+1, 6) rhs terms R Q w."""
+    QR = R * Q[:, None, None, :]
+    return (torch.einsum("madh,mbeh->mabde", QR, R),
+            torch.einsum("madh,mh->mad", QR, wrhs))
+
+
+def _depth_update(R, pid, Q, wrhs, dx):
+    """dz = Q (w - R^T dx) over the adjacency rows."""
+    return Q * (wrhs - torch.einsum("madh,mad->mh", R, dx[pid]))
+
+
+def ba_global(target, weight, eta, poses, disps, intrinsics, ii, jj,
+              edge_valid, group_idx, group_valid, free_mask, iters=2,
+              ep=0.1, lm=1e-4):
+    """Full-trajectory dense-depth BA with an edge-sparse Schur complement:
+    the dense-solve form of the terminate pass.
+
+    The window BA materializes the pose-depth coupling E as a dense
+    (P, M, 6, HW) tensor; here S -= E Q E^T is accumulated per depth frame
+    over a capped adjacency list instead:
+
+      group_idx (T, d) integer — ids of edges whose source frame ii == m
+      group_valid (T, d) bool — padding mask
+
+    For depth frame m the poses coupled through its depth block are m
+    itself (via every edge's Ei) and the d destination frames jj[e] (via
+    Ej); stacking those d+1 rows gives R_m (d+1, 6, HW), whose (d+1)^2
+    outer-product blocks scatter into the dense (T, T, 6, 6) pose system
+    with `index_add_` over a flat (T*T, 6, 6) buffer.
+
+    free_mask (T,) bool — poses to optimize (False = pinned, e.g. frame 0).
+    Returns (poses, disps) after `iters` Gauss-Newton steps."""
+    T = disps.shape[0]
+    ii, jj, group_idx = ii.long(), jj.long(), group_idx.long()
+
+    def mat(vals, a, b):
+        return _scatter_rows(vals, a * T + b, T * T).reshape(T, T, 6, 6)
+
+    for _ in range(iters):
+        (Hii, Hij, Hji, Hjj), v, R, pid, Q, wrhs = _global_terms(
+            target, weight, eta, poses, disps, intrinsics, ii, jj,
+            edge_valid, group_idx, group_valid)
+        H = mat(Hii, ii, ii) + mat(Hij, ii, jj) + mat(Hji, jj, ii) \
+            + mat(Hjj, jj, jj)
+        Sblk, vblk = _schur_blocks(R, Q, wrhs)
+        sidx = (pid[:, :, None] * T + pid[:, None, :]).reshape(-1)
+        Ssub = _scatter_rows(Sblk.reshape(-1, 6, 6), sidx,
+                             T * T).reshape(T, T, 6, 6)
+        vsub = _scatter_rows(vblk.reshape(-1, 6), pid.reshape(-1), T)
+        S, v2 = _mask_fixed(H - Ssub, v - vsub, free_mask)
+        dx = damped_solve(S, v2, ep, lm)
+        dx = dx * free_mask[:, None].to(dx.dtype)
+        dz = _depth_update(R, pid, Q, wrhs, dx)
+        poses, disps = retract(poses, disps, dx, dz, fixedp=0)
+    return poses, disps
+
+
+def _band_neighbors(T, band, device=None):
+    """Column c of band storage holds block (a, a + c - band)."""
+    idx = torch.arange(T, device=device)[:, None] \
+        + torch.arange(2 * band + 1, device=device)[None, :] - band
+    ok = (idx >= 0) & (idx < T)
+    return idx.clamp(0, T - 1), ok
+
+
+def band_matvec(Sb, x, band):
+    """y[a] = sum_c Sb[a, c] @ x[a + c - band]; Sb (T, 2b+1, 6, 6)."""
+    idx, ok = _band_neighbors(x.shape[0], band, x.device)
+    xg = x[idx] * ok[..., None].to(x.dtype)
+    return torch.einsum("twde,twe->td", Sb, xg)
+
+
+# iterations between the host's reads of `banded_pcg`'s done flag
+CG_CHECK_EVERY = 32
+
+
+def banded_pcg(Sb, b, band, iters=128, tol=1e-8):
+    """Block-Jacobi-preconditioned conjugate gradients on the block-banded
+    SPD pose system; O(T * band * 36) per iteration, no dense (T*6)^2
+    matrix. Returns (x, n_iters) with n_iters a device scalar: the
+    iterations that ran before the stop rule below held.
+
+    Early stop: an iteration runs while rz > tol * rz0 and rz is finite.
+    The test is a device-side `done` flag, not a host branch: once it is
+    set, x, r, z, p and rz stay frozen, which gives the same x as a loop
+    that exits there. To skip the frozen tail the host reads the flag once
+    every CG_CHECK_EVERY iterations (one synchronizing call each)."""
+    eye6 = torch.eye(6, dtype=Sb.dtype, device=Sb.device)
+    D = Sb[:, band] + 1e-8 * eye6[None]
+    Dinv = torch.linalg.inv_ex(D).inverse
+    Dinv = torch.where(torch.isfinite(Dinv), Dinv, eye6[None])
+
+    def precond(r):
+        return torch.einsum("tde,te->td", Dinv, r)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    rz0 = rz
+    n_iters = torch.zeros((), dtype=torch.int32, device=b.device)
+    for i in range(iters):
+        if i and i % CG_CHECK_EVERY == 0 and not bool(
+                (rz > tol * rz0) & torch.isfinite(rz)):
+            break
+        run = (rz > tol * rz0) & torch.isfinite(rz)
+        Ap = band_matvec(Sb, p, band)
+        alpha = rz / (torch.sum(p * Ap) + 1e-20)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z_n = precond(r_n)
+        rz_n = torch.sum(r_n * z_n)
+        p_n = z_n + rz_n / (rz + 1e-20) * p
+        x, r, z, p, rz = (torch.where(run, new, old) for new, old in
+                          ((x_n, x), (r_n, r), (z_n, z), (p_n, p),
+                           (rz_n, rz)))
+        n_iters = n_iters + run.to(torch.int32)
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x)), n_iters
+
+
+def ba_global_banded(target, weight, eta, poses, disps, intrinsics, ii, jj,
+                     edge_valid, group_idx, group_valid, free_mask,
+                     iters=2, ep=0.1, lm=1e-4, band=128, cg_iters=128,
+                     stats=None):
+    """`ba_global` with the pose system in block-band storage and a PCG
+    solve: memory O(T * band * 36) instead of O(T^2 * 36).
+
+    Requires |ii - jj| <= band/2 for every edge (the Schur complement fills
+    in up to twice the edge band); out-of-band blocks are dropped, so
+    callers pick `band` >= 2 * the longest edge. Equals `ba_global` when
+    the band covers the whole system up to the PCG's stop rule
+    (`banded_pcg`'s `tol`). `stats`, a dict, receives the list of CG
+    iterations of each Gauss-Newton step as device scalars
+    (`cg_iters_used`)."""
+    T = disps.shape[0]
+    Wd = 2 * band + 1
+    ii, jj, group_idx = ii.long(), jj.long(), group_idx.long()
+    eye6 = torch.eye(6, dtype=poses.dtype, device=poses.device)
+    idx_nb, _ = _band_neighbors(T, band, poses.device)
+
+    def band_index(a, b):
+        c = b - a + band
+        ok = (c >= 0) & (c < Wd)
+        return torch.where(ok, a * Wd + c, torch.full_like(c, T * Wd))
+
+    def matb(vals, a, b):
+        return _scatter_rows(vals, band_index(a, b), T * Wd).reshape(
+            T, Wd, 6, 6)
+
+    for _ in range(iters):
+        (Hii, Hij, Hji, Hjj), v, R, pid, Q, wrhs = _global_terms(
+            target, weight, eta, poses, disps, intrinsics, ii, jj,
+            edge_valid, group_idx, group_valid)
+        Hb = matb(Hii, ii, ii) + matb(Hij, ii, jj) + matb(Hji, jj, ii) \
+            + matb(Hjj, jj, jj)
+        Sblk, vblk = _schur_blocks(R, Q, wrhs)
+        d1 = R.shape[1]
+        pa = pid[:, :, None].expand(T, d1, d1)
+        pb = pid[:, None, :].expand(T, d1, d1)
+        Ssub = _scatter_rows(Sblk.reshape(-1, 6, 6),
+                             band_index(pa, pb).reshape(-1),
+                             T * Wd).reshape(T, Wd, 6, 6)
+        vsub = _scatter_rows(vblk.reshape(-1, 6), pid.reshape(-1), T)
+        Sb = Hb - Ssub
+        v2 = v - vsub
+
+        # pin fixed poses (banded _mask_fixed): zero their rows/cols,
+        # identity diagonal block, zero rhs
+        m = free_mask.to(Sb.dtype)
+        Sb = Sb * m[:, None, None, None] * m[idx_nb][..., None, None]
+        dg = Sb[:, band] + (1.0 - m)[:, None, None] * eye6[None]
+        # damping as damped_solve: diagonal elements scaled by (1 + lm),
+        # plus ep
+        dd = torch.diagonal(dg, dim1=-2, dim2=-1)
+        Sb = Sb.clone()
+        Sb[:, band] = dg + (ep + lm * dd)[:, :, None] * eye6[None]
+        v2 = v2 * m[:, None]
+
+        dx, used = banded_pcg(Sb, v2, band, iters=cg_iters)
+        if stats is not None:
+            stats.setdefault("cg_iters_used", []).append(used)
+        dx = dx * free_mask[:, None].to(dx.dtype)
+        dz = _depth_update(R, pid, Q, wrhs, dx)
+        poses, disps = retract(poses, disps, dx, dz, fixedp=0)
+    return poses, disps

@@ -1,6 +1,7 @@
 """Flagship single-process pipeline:
 dataset -> tracker [-> inertial fusion] -> middleware -> mapper
-[-> storage paging] -> trajectory + .ply.
+[-> pose refinement back into the tracker] [-> storage paging] [-> vis]
+-> global BA -> trajectory + .ply.
 
 Usage: python -m vings_mono_tpu_torch.runners.run <config.yaml>
            [--prefix NAME] [--max-frames N] [--device cuda|cpu]
@@ -12,12 +13,15 @@ Ported: `mode: vo`, `vo_nerfslam` and `vio` (the inertial layer reads the
 dataset's `preload_imu()`, and `preload_gnss()` / `preload_odo()` where the
 dataset has them, with `frontend.c2i` from the dataset's `c2i`),
 `use_storage_manager` (paging every `storage_manager.every` frames, timed as
-stage `storage`), and `middleware.variant` v3, nerfslam and v0_kitti360.
-Every option that is not ported yet raises NotImplementedError naming it:
-`use_loop`, `use_metric`, `use_dynamic`, `use_global_ba`, `use_vis`,
-`--resume`, `--checkpoint-every` (the mapper names its own: `use_sky`,
-`use_refine`, `parallel.dp`, `training_args.coarse_frac`; the dataset
-loader names the image-folder datasets).
+stage `storage`), `middleware.variant` v3, nerfslam and v0_kitti360,
+`use_global_ba` (the terminate pass, stage `global_ba`), `use_vis` (the
+rgbdnua panel every keyframe, the map and the follow-cam BEV every tenth,
+stage `vis`), and in the mapper `use_sky`, `use_refine` (the refined poses
+go back into the tracker's window) and `training_args.coarse_frac`.
+`check_ported` raises NotImplementedError naming the first option that is
+not ported yet: `use_loop`, `use_metric`, `use_dynamic`, `parallel.dp`,
+`--resume`, `--checkpoint-every` (the dataset loader names the
+image-folder datasets).
 """
 
 from __future__ import annotations
@@ -29,8 +33,7 @@ import time
 
 import numpy as np
 
-UNPORTED_FLAGS = ("use_loop", "use_metric", "use_dynamic", "use_global_ba",
-                  "use_vis")
+UNPORTED_FLAGS = ("use_loop", "use_metric", "use_dynamic")
 MODES = ("vo", "vo_nerfslam", "vio")
 
 
@@ -43,6 +46,8 @@ def check_ported(cfg, resume=None, checkpoint_every=None):
     for flag in UNPORTED_FLAGS:
         if cfg.get(flag):
             raise NotImplementedError(f"{flag} is not ported yet")
+    if int((cfg.get("parallel") or {}).get("dp", 1)) > 1:
+        raise NotImplementedError("parallel.dp is not ported yet")
     if resume:
         raise NotImplementedError("--resume is not ported yet")
     if checkpoint_every:
@@ -93,7 +98,7 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     sync_timer: end each timed stage with a device synchronize, so the
     stage times hold the device work (slower: it stops the host from
     running ahead)."""
-    from ..middleware import judge_and_package
+    from ..middleware import judge_and_package, retrieve_to_tracker
     from ..utils.profiling import StageTimer
     from ..utils.trajectory import save_trajectory
 
@@ -104,6 +109,7 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     timer = StageTimer(sync_device=tracker.device if sync_timer else None)
     n = len(dataset) if max_frames is None else min(len(dataset),
                                                     max_frames)
+    kf_count = 0
     for idx in range(start_frame, n):
         pkt = dataset[idx]
         with timer("track"):
@@ -113,16 +119,57 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
         if viz_out is not None:
             with timer("map"):
                 mapper.run(viz_out)
+            if cfg.get("use_refine") and mapper.refined_poses is not None:
+                retrieve_to_tracker(viz_out, mapper.refined_poses, tracker)
+            kf_count += 1
         if storage is not None and idx % every == every - 1:
             with timer("storage"):
                 storage.run(tracker, mapper, viz_out)
+        if cfg.get("use_vis") and viz_out is not None:
+            with timer("vis"):
+                _save_vis(cfg, save_dir, tracker, mapper, storage, viz_out,
+                          kf_count)
         if on_frame is not None:
             on_frame(idx, tracker, mapper, viz_out)
 
+    if cfg.get("use_global_ba"):
+        # terminate pass: full-trajectory BA removes the online drift the
+        # sliding window could not (no loop pairs: use_loop is not ported)
+        from ..tracker.backend import GlobalBA
+        with timer("global_ba"):
+            stats = GlobalBA(tracker, cfg).run()
+        print(f"global BA: {stats}")
     save_trajectory(tracker, save_dir)
     os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
     mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
     return tracker, mapper, timer
+
+
+def _save_vis(cfg, save_dir, tracker, mapper, storage, viz_out, kf_count):
+    """The rgbdnua panel of the newest keyframe; every tenth keyframe also
+    the whole map (host pages composited) and the follow-cam BEV. Returns
+    the uint8 images by name."""
+    from ..utils.trajectory import tracker_c2ws
+    from ..utils.vis import host_array, save_rgbdnua, vis_bev, vis_map
+    kf = -1
+    pose = host_array(viz_out["poses"][kf])
+    rets = mapper.render_at(np.linalg.inv(pose), viz_out["intrinsic"])
+    gt = {k: np.moveaxis(host_array(viz_out[k][kf]), -1, 0)
+          for k in ("images", "depths", "depths_cov")}
+    ts = float(np.asarray(viz_out["viz_out_idx_to_f_idx"])[kf])
+    out = {"rgbdnua": save_rgbdnua(save_dir, ts, rets, gt["images"],
+                                   gt["depths"], gt["depths_cov"])}
+    if (kf_count - 1) % 10 == 0:
+        vcfg = cfg.get("vis", {}) or {}
+        map_size = tuple(vcfg.get("map_size", (480, 640)))
+        bev_size = tuple(vcfg.get("bev_size", (320, 320)))
+        _, c2ws = tracker_c2ws(tracker)
+        out["map"] = vis_map(mapper, np.asarray(c2ws), os.path.join(
+            save_dir, "map", f"map_{kf_count:05d}.png"), size=map_size,
+            storage=storage)
+        out["bev"] = vis_bev(mapper, pose, os.path.join(
+            save_dir, "bev", f"bev_{kf_count:05d}.png"), size=bev_size)
+    return out
 
 
 def main(argv=None):
