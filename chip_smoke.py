@@ -71,7 +71,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      keyframe times against phase 4's, PSNR, both kernels against their
      plain twins on the sky sphere's pairs and at 120x400, and refine's
      gradient with respect to the pose through the kernels against the
-     gradient through the plain twins.
+     gradient through the plain twins;
+ 12. the slice's main path: `runners.run.run` on
+     `configs/synthetic/smoke.yaml` as committed (`mode: vo` with loop
+     closure, dynamic masks, sky, refine, storage, vis and global BA, 30
+     frames at 240x432, random DroidNet and SuperPoint weights from the
+     seed); prints the stage times (`loop` and `dynamic` among them), the
+     loop attempts with the stage each reached, the closures accepted, the
+     dynamic pixels masked and the kernels' launches, and holds both
+     kernels against their plain twins on the loop path's own inputs (the
+     verify render at the recovered pose, or the render at the current
+     pose, culled to 60 m; the first retrain window when a closure was
+     accepted);
+ 13. the learned nets and the rectification on the card against the CPU:
+     self-trained SuperPoint + LightGlue (2 layers) on pairs of room views
+     at 240x320 through extract, match and PnP (heat and descriptor error,
+     match overlap, PnP error against the truth, ms per detect chain);
+     self-trained FastSAM at 240x432 (raw-map error, mask IoU, ms per
+     call); `rectify_poses`, `rectify_gaussians`, `rectify_tracker` with the
+     depth write-back and `retrain_gaussians` on phase 12's end state with
+     a known endpoint correction, from the same snapshot on both.
+Every phase runs with PyTorch's default numeric flags: the port clears
+TF32 where it computes in f32 (`utils.device.true_f32`).
 The second-to-last line is the card's name and power limit, the last line
 a JSON summary. Without CUDA it exits 1 and prints no result.
 """
@@ -1907,7 +1928,7 @@ def global_ba_phase(tracker, cfg):
     from vings_mono_tpu_torch.datasets.base import get_dataset
     from vings_mono_tpu_torch.ops import ba as ba_ops
     from vings_mono_tpu_torch.tracker.backend import GlobalBA
-    from vings_mono_tpu_torch.utils.device import f32_matmul
+    from vings_mono_tpu_torch.utils.device import true_f32
     from vings_mono_tpu_torch.utils.profiling import StageTimer
     from vings_mono_tpu_torch.utils.trajectory import ate_rmse, tracker_c2ws
     gt = get_dataset(cfg).load_gt_dict()
@@ -1980,7 +2001,7 @@ def global_ba_phase(tracker, cfg):
                                            band=band, cg_iters=BA_CG_FULL,
                                            stats=st)
 
-    with torch.no_grad(), f32_matmul():
+    with torch.no_grad(), true_f32():
         for name, fn in (
                 ("banded", lambda st: ba_ops.ba_global_banded(
                     *prob["args"], iters=iters, band=band, stats=st)),
@@ -2035,7 +2056,7 @@ def banded_at_scale(be, h, w):
     import gc
     import torch
     from vings_mono_tpu_torch.ops import ba as ba_ops
-    from vings_mono_tpu_torch.utils.device import f32_matmul
+    from vings_mono_tpu_torch.utils.device import true_f32
     gc.collect()
     torch.cuda.empty_cache()
     intr8 = np.asarray([INTRINSIC["fv"] / 8, INTRINSIC["fu"] / 8, w / 2,
@@ -2050,7 +2071,7 @@ def banded_at_scale(be, h, w):
     iters = be["gn_iters"]
     band = 2 * be["band"]       # GlobalBA's: twice its proposal band
     st = {}
-    with torch.no_grad(), f32_matmul():
+    with torch.no_grad(), true_f32():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pb, _ = ba_ops.ba_global_banded(
@@ -2259,6 +2280,494 @@ def mapper_options_phase(args, tk, cfg, phase4_ms, win_dir, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: configs/synthetic/smoke.yaml as committed (loop closure, dynamic
+# masks and every other option)
+# ---------------------------------------------------------------------------
+
+SMOKE = ROOT / "configs/synthetic/smoke.yaml"
+WEIGHTS_DIR = ROOT / "vings_mono_tpu/weights"
+MAP_FIELDS = ("xyz", "log_scale", "quat", "logit_opacity", "rgb", "alive")
+
+
+def culled(state, c2w, max_dist):
+    """The rows `render_at(..., max_dist)` renders: alive and within
+    max_dist of the camera center."""
+    import types
+    import torch
+    c = torch.as_tensor(np.asarray(c2w)[:3, 3], dtype=torch.float32,
+                        device=state.xyz.device)
+    alive = state.alive & (((state.xyz - c) ** 2).sum(-1) < max_dist ** 2)
+    return types.SimpleNamespace(
+        **{f: getattr(state, f) for f in MAP_FIELDS if f != "alive"},
+        alive=alive)
+
+
+@contextlib.contextmanager
+def first_train_window():
+    """GaussianMapper.train_on_window with its first call's map (the rows
+    a render reads, as they were before the training) and the window's
+    first camera kept: the retrain's kernel inputs."""
+    import types
+    from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
+    got = {}
+    train = GaussianMapper.train_on_window
+
+    def rec(self, viz_out, iters, weights=None):
+        if not got:
+            got.update(state=types.SimpleNamespace(
+                **{f: getattr(self.state, f).clone() for f in MAP_FIELDS}),
+                c2w=np.asarray(viz_out["poses"][0]),
+                intr=dict(viz_out["intrinsic"]), n=len(viz_out["poses"]))
+        return train(self, viz_out, iters, weights)
+    with replaced(GaussianMapper, "train_on_window", rec):
+        yield got
+
+
+def kernels_on(tag, blocks, kw, seed):
+    """check_kernels on (label, state, c2w, intrinsic) blocks; returns the
+    largest forward and bf16 backward errors, absolute and relative to
+    what they are held to."""
+    import torch
+    fwd = bwd = fwd_rel = bwd_rel = 0.0
+    for i, (label, st, c2w, intr) in enumerate(blocks):
+        w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
+                              device=DEVICE)
+        pd, binned, meta = pair_inputs(st, w2c, kw, DEVICE, intrinsic=intr)
+        n_pairs = int(binned.n_pairs)
+        label = f"{tag} {int(intr['H'])}x{int(intr['W'])} {label}"
+        print(f"{tag} kernels on the loop path's inputs: {label}: "
+              f"{n_pairs} pairs, p_cap {pd.shape[1]}", flush=True)
+        check(n_pairs > 0, f"{label}: no pair to rasterize")
+        f, b, _, _, _, rel = check_kernels(label, pd, binned.tile_chunks,
+                                           meta, int(kw["chunk"]), seed + i,
+                                           n_pairs)
+        fwd, bwd = max(fwd, f), max(bwd, b["bf16"])
+        fwd_rel, bwd_rel = max(fwd_rel, rel["fwd"]), max(bwd_rel,
+                                                         rel["bf16"])
+    return fwd, bwd, fwd_rel, bwd_rel
+
+
+def smoke_phase(args, tk):
+    """Phase 12. Returns the kernels' launch counts during the run, their
+    largest errors against the plain twins on its inputs, and the run's
+    (tracker, mapper, cfg) for phase 13."""
+    import torch
+    from vings_mono_tpu_torch.loop import detect as detect_mod
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.utils.config import load_config
+    save_dir = OUT / "smoke"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = load_config(str(SMOKE), overrides={
+        "output": {"save_dir": str(save_dir)},
+        "device": {"tracker": DEVICE, "mapper": DEVICE}})
+    h, w = (int(x) for x in cfg["frontend"]["image_size"])
+    flags = ("use_loop", "use_dynamic", "use_sky", "use_refine",
+             "use_storage_manager", "use_vis", "use_global_ba")
+    check(cfg["mode"] == "vo" and all(cfg[f] for f in flags)
+          and not cfg["use_metric"] and cfg["dataset"]["n_frames"] == 30
+          and (h, w) == (240, 432), "phase 12 is not smoke.yaml as committed")
+    print(f"phase 12 config: {SMOKE.relative_to(ROOT)} as committed (mode "
+          f"{cfg['mode']}, {', '.join(flags)}, looper {cfg['looper']}, "
+          f"{cfg['dataset']['n_frames']} frames at {h}x{w}, random DroidNet "
+          f"and SuperPoint weights from the seed); only the device and the "
+          f"save dir are set", flush=True)
+    got = {"renders": [], "loop_calls": []}
+    build, render = run_mod.build, detect_mod.map_render
+
+    def rec_build(*a, **k):
+        out = build(*a, **k)
+        got["looper"], got["dynamic"] = out[4], out[5]
+        run = got["looper"].run
+
+        def rec_run(mapper, tracker, viz_out, frame_idx):
+            got["loop_calls"].append(np.array(
+                viz_out["poses"][-1].cpu().numpy(), np.float64))
+            return run(mapper, tracker, viz_out, frame_idx)
+        got["looper"].run = rec_run
+        return out
+
+    def rec_render(mapper, c2w, intr, max_dist):
+        # the trace's stage says which render this is: "pnp" at the
+        # current pose, "verify" at the recovered one
+        stage = got["looper"].detector.traces[-1]["stage"]
+        got["renders"].append((stage, np.array(c2w), dict(intr), max_dist))
+        return render(mapper, c2w, intr, max_dist)
+
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    t0 = time.perf_counter()
+    with replaced(run_mod, "build", rec_build), \
+            replaced(detect_mod, "map_render", rec_render), \
+            first_train_window() as retrain:
+        tracker, mapper, timer = run_mod.run(cfg, str(save_dir),
+                                             sync_timer=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"rasterize_forward": tk.rasterize_forward.launches,
+                "rasterize_backward": tk.rasterize_backward.launches}
+    smi = nvidia_smi()
+    print(timer.report().replace("\n", "\nphase 12 ").replace(
+        "stage times", "phase 12 stage times"), flush=True)
+    v = tracker.video
+    looper, dyn = got["looper"], got["dynamic"]
+    traces = looper.detector.traces
+    accepted = [(t["cand_gid"], t["cur_gid"]) for t in looper.loop_traces
+                if "rejected" not in t]
+    gated = [t for t in looper.loop_traces if "rejected" in t]
+    print(f"phase 12 run [{smi}]: {cfg['dataset']['n_frames']} frames in "
+          f"{run_s:.1f} s, {v.counter + v.count_save} keyframes, the mapper "
+          f"trained on {mapper.time_idx}, {mapper.n_alive} Gaussians, "
+          f"{int(mapper.sky.state.n_alive())} sky rows; loop "
+          f"detection ran {len(got['loop_calls'])} times, {len(traces)} "
+          f"attempts reaching stages "
+          f"{[t['stage'] for t in traces]} (matches "
+          f"{[t['matches'] for t in traces]}, PnP inliers "
+          f"{[t['pnp_inliers'] for t in traces]}, verify L1 "
+          f"{[t['verify_err'] for t in traces]}); closures accepted "
+          f"{accepted}, gated by the drift bound {len(gated)}; dynamic "
+          f"pixels masked {dyn.n_masked}; launches {launches}", flush=True)
+    for stage in ("loop", "dynamic", "global_ba", "vis", "storage", "map"):
+        check(stage in timer.totals, f"phase 12: no {stage} stage")
+    check(len(got["loop_calls"]) >= 1, "phase 12: loop detection never ran")
+    check(mapper.time_idx >= 10, f"the mapper trained on "
+          f"{mapper.time_idx} keyframes only")
+    for name, cnt in launches.items():
+        check(cnt >= mapper.time_idx * int(cfg["training_args"]["iters"]),
+              f"{name} launched {cnt} times in phase 12")
+    n = v.counter
+    check(bool(torch.isfinite(v.bufs.poses[:n]).all()
+               and torch.isfinite(v.bufs.disps_up[:n]).all())
+          and np.isfinite(v.poses_save[:v.count_save]).all(),
+          "phase 12 poses or disparities are not finite")
+    check(len(list((save_dir / "droid_c2w").glob("*.txt")))
+          == n + v.count_save
+          and (save_dir / "ply" / "final_2dgs.ply").stat().st_size > 0,
+          "phase 12 trajectory or .ply missing")
+
+    # the kernels on the loop path's own inputs: the verify render at the
+    # recovered pose, else the render at the current pose, else (no attempt
+    # got past matching) the current pose as the detector would render it;
+    # and the first retrain window as it was when the closure trained it
+    # (retrain trains saved keyframes only: none while all are live)
+    verify = [r for r in got["renders"] if r[0] == "verify"]
+    cur = [r for r in got["renders"] if r[0] == "pnp"]
+    if verify or cur:
+        _, c2w, intr, max_dist = (verify or cur)[-1]
+        what = "verify render at the recovered pose" if verify else \
+            "render at the current pose"
+    else:
+        what, c2w = "current pose of the last loop call", \
+            got["loop_calls"][-1]
+        intr, max_dist = tracker._intr_cache, 60.0
+    blocks = [(f"{what}, max_dist {max_dist}",
+               culled(mapper.state, c2w, max_dist), c2w, intr)]
+    if retrain:
+        blocks.append((f"retrain window's first camera ({retrain['n']} "
+                       f"keyframes)", retrain["state"], retrain["c2w"],
+                       retrain["intr"]))
+    else:
+        print(f"phase 12 retrain trained no window: {v.count_save} "
+              f"keyframes saved at the closures (phase 13 holds the "
+              f"kernels on a retrain window)", flush=True)
+    errs = kernels_on("phase 12", blocks, dict(mapper.bin_kwargs),
+                      args.seed + 30)
+    return launches, errs, (tracker, mapper, cfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the learned nets and the rectification, card against CPU
+# ---------------------------------------------------------------------------
+
+def room_pair(rng, h, w, room=4.0):
+    """Two views of the procedural room with a revisit's viewpoint change
+    (~0.5 units of baseline, ~20 degrees of yaw): rgb, depth and c2w of
+    each, and the intrinsics."""
+    from vings_mono_tpu_torch.datasets.synthetic3d import (render_room,
+                                                           texture_params)
+    f = rng.uniform(0.9, 1.1) * w * 0.75
+    intr4 = np.asarray([f, f, w / 2, h / 2], np.float32)
+    tex = texture_params(int(rng.integers(1 << 31)), sharpness=1.0)
+
+    def c2w_of(pos, yaw, pitch):
+        cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), \
+            np.sin(pitch)
+        m = np.eye(4)
+        m[:3, :3] = np.asarray([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]) @ \
+            np.asarray([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+        m[:3, 3] = pos
+        return m
+
+    pos = rng.uniform(-0.4, 0.4, 3) * room
+    yaw, pitch = rng.uniform(-np.pi, np.pi), rng.uniform(-0.3, 0.3)
+    a = c2w_of(pos, yaw, pitch)
+    b = c2w_of(pos + rng.normal(size=3) * 0.55, yaw + rng.normal() * 0.35,
+               np.clip(pitch + rng.normal() * 0.12, -0.4, 0.4))
+    views = [render_room(c, intr4, h, w, room, tex=tex) + (c,)
+             for c in (a, b)]
+    return views, intr4
+
+
+def matched_set(kp_a, kp_b):
+    return {tuple(np.round(np.r_[p, q], 3)) for p, q in zip(kp_a, kp_b)}
+
+
+def detector_phase(seed, n_pairs=3, h=240, w=320):
+    """Phase 13a: self-trained SuperPoint + LightGlue (2 layers) on the
+    card and on the CPU, on views of the room at 240x320: extract, match,
+    PnP. Returns ms per detect chain."""
+    import torch
+    from vings_mono_tpu_torch.loop.detect import LoopDetector
+    from vings_mono_tpu_torch.models.superpoint import extract
+    sp = str(WEIGHTS_DIR / "superpoint_selftrained.npz")
+    lg = str(WEIGHTS_DIR / "lightglue_selftrained.npz")
+    dets = {dev: LoopDetector({}, sp, lg_params_path=lg, device=dev)
+            for dev in (DEVICE, "cpu")}
+    check(dets[DEVICE].lg.layers == 2, "phase 13: LightGlue is not 2 layers")
+    rng = np.random.default_rng(seed)
+    chain_ms, ok = [], 0
+    for k in range(n_pairs):
+        ((rgb_a, dep_a, c2w_a), (rgb_b, _, c2w_b)), intr4 = room_pair(
+            rng, h, w)
+        # the net's maps at the detector's input (512 wide), card vs CPU
+        gray = np.asarray(rgb_a) @ np.asarray([0.299, 0.587, 0.114])
+        hh = int(round(h * 512.0 / w / 8)) * 8
+        import cv2
+        gray = cv2.resize(gray.astype(np.float32), (512, hh))
+        maps = {}
+        for dev, det in dets.items():
+            with torch.no_grad():
+                heat, desc = det.model(torch.as_tensor(
+                    gray, device=dev)[None, :, :, None])
+            maps[dev] = (heat.cpu().numpy(), desc.cpu().numpy())
+        e_heat = float(np.abs(maps[DEVICE][0] - maps["cpu"][0]).max())
+        e_desc = float(np.abs(maps[DEVICE][1] - maps["cpu"][1]).max())
+        out = {}
+        for dev, det in dets.items():
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fa, fb = det.extract(rgb_a), det.extract(rgb_b)
+            kp_a, kp_b = det.match(fa, fb, img_hw=(h, w))
+            c2w = det.pnp_history_pose(kp_a, kp_b, dep_a, c2w_a, intr4)
+            ms = (time.perf_counter() - t0) * 1e3
+            out[dev] = (kp_a, kp_b, c2w, ms)
+        chain_ms.append(out[DEVICE][3])
+        sa, sb = (matched_set(*out[d][:2]) for d in (DEVICE, "cpu"))
+        overlap = len(sa & sb) / max(len(sa), len(sb), 1)
+        c2w = out[DEVICE][2]
+        if c2w is not None:
+            t_err = float(np.linalg.norm(c2w[:3, 3] - c2w_b[:3, 3]))
+            r_err = float(np.degrees(np.arccos(np.clip((np.trace(
+                c2w[:3, :3].T @ c2w_b[:3, :3]) - 1) / 2, -1, 1))))
+            ok += t_err < 0.25
+            pnp = f"{t_err:.4f} units, {r_err:.3f} deg"
+        else:
+            pnp = "no pose (too few inliers)"
+        print(f"phase 13 SuperPoint + LightGlue pair {k} at {h}x{w}: heat "
+              f"max abs err card vs CPU {e_heat:.3e}, descriptors "
+              f"{e_desc:.3e} (tol 1e-4); matches card {len(sa)}, CPU "
+              f"{len(sb)}, overlap {overlap:.4f}; PnP pose error against "
+              f"the truth {pnp}; detect chain (extract x2, match, PnP) "
+              f"card {out[DEVICE][3]:.1f} ms, CPU {out['cpu'][3]:.1f} ms",
+              flush=True)
+        check(e_heat <= 1e-4 and e_desc <= 1e-4,
+              "phase 13: SuperPoint on the card left the CPU")
+        check(overlap >= 0.95, f"phase 13: the card's matches overlap the "
+              f"CPU's by {overlap:.4f}")
+    # a second pass over the last pair, warm, for the time
+    det = dets[DEVICE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        kp_a, kp_b = det.match(det.extract(rgb_a), det.extract(rgb_b),
+                               img_hw=(h, w))
+        det.pnp_history_pose(kp_a, kp_b, dep_a, c2w_a, intr4)
+    warm = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"phase 13 detect chain on the card: {warm:.1f} ms warm (first "
+          f"calls {[round(x, 1) for x in chain_ms]} ms); PnP within 0.25 "
+          f"units of the truth on {ok} of {n_pairs} pairs", flush=True)
+    return warm
+
+
+def fastsam_phase(seed, h=240, w=432):
+    """Phase 13b: self-trained FastSAM at 240x432, card against CPU."""
+    import torch
+    from vings_mono_tpu_torch.datasets.synthetic3d import (render_room,
+                                                           texture_params,
+                                                           trajectory_c2w)
+    from vings_mono_tpu_torch.models.fastsam import (load_fastsam, raw_maps,
+                                                     segment_everything)
+    path = str(WEIGHTS_DIR / "fastsam_selftrained.npz")
+    rgb, _ = render_room(trajectory_c2w(5, 30),
+                         np.asarray([0.9 * w, 0.9 * w, w / 2, h / 2]), h, w,
+                         tex=texture_params(seed, sharpness=1.0))
+    rgb = rgb.copy()
+    rgb[60:140, 100:220] = (1.0, 0.1, 0.1)          # an object
+    models = {dev: load_fastsam(path, device=dev) for dev in (DEVICE, "cpu")}
+    maps = {dev: [x.cpu().numpy() for x in raw_maps(m, rgb)]
+            for dev, m in models.items()}
+    errs = [float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+            for a, b in zip(maps[DEVICE], maps["cpu"])]
+    masks = {dev: segment_everything(m, rgb) for dev, m in models.items()}
+    ious = [float((a & b).sum() / max((a | b).sum(), 1))
+            for a, b in zip(masks[DEVICE], masks["cpu"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        segment_everything(models[DEVICE], rgb)
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"phase 13 FastSAM (width 0.25) at {h}x{w}: raw maps card vs CPU "
+          f"max abs err / max(1, |CPU|) boxes {errs[0]:.3e}, scores "
+          f"{errs[1]:.3e}, coefficients {errs[2]:.3e}, prototypes "
+          f"{errs[3]:.3e} (tol 1e-4); masks card {len(masks[DEVICE])}, CPU "
+          f"{len(masks['cpu'])}, IoU {[round(x, 4) for x in ious]}; "
+          f"segment_everything {ms:.1f} ms per call on the card", flush=True)
+    check(max(errs) <= 1e-4, "phase 13: FastSAM on the card left the CPU")
+    check(len(masks[DEVICE]) == len(masks["cpu"]) >= 1
+          and min(ious) >= 0.99, "phase 13: FastSAM masks differ")
+    return ms
+
+
+def video_copy(src, cfg, n_save, device):
+    """A DepthVideo on `device` holding src's keyframes with the first
+    n_save of them in the save buffers, the rest live."""
+    import torch
+    from vings_mono_tpu_torch.tracker.video import DepthVideo
+    ns0, nl0 = src.count_save, src.counter
+    rows = {k: np.concatenate([getattr(src, k + "_save")[:ns0],
+                               getattr(src.bufs, k)[:nl0].cpu().numpy()])
+            for k in ("poses", "disps", "disps_up", "images",
+                      "depths_cov_up")}
+    ts = np.concatenate([src.tstamp_save[:ns0], src.tstamps_host])
+    v = DepthVideo(cfg, src.ht, src.wd, device=device)
+    v.count_save, v.counter = n_save, len(ts) - n_save
+    v.tstamp_save[:n_save] = ts[:n_save]
+    for k, a in rows.items():
+        getattr(v, k + "_save")[:n_save] = a[:n_save]
+        getattr(v.bufs, k)[:v.counter] = torch.as_tensor(a[n_save:],
+                                                         device=device)
+    v.tstamps_host = [float(x) for x in ts[n_save:]]
+    return v
+
+
+def mapper_copy(src, cfg, device):
+    """A GaussianMapper on `device` with src's map, Adam moments and image
+    size, and a fresh generator from the config's seed."""
+    from vings_mono_tpu_torch.mapper import state as st
+    from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
+    m = GaussianMapper(cfg, device=device)
+    m.state = st.GaussianState(**{f: getattr(src.state, f).to(device).clone()
+                                  for f in st.STATE_FIELDS})
+    m.opt = st.SparseAdamState(
+        m={k: x.to(device).clone() for k, x in src.opt.m.items()},
+        v={k: x.to(device).clone() for k, x in src.opt.v.items()},
+        step=src.opt.step)
+    m.H, m.W, m.initialized = src.H, src.W, True
+    m.bin_kwargs = dict(src.bin_kwargs)
+    return m
+
+
+RECT_SAVE = 16       # keyframes of phase 12's end state put in the save
+RECT_RETRAIN = 1     # buffers; the retrain span 0..RECT_RETRAIN
+RECT_WRITEBACK = 9   # the depth write-back span 0..RECT_WRITEBACK
+
+
+def rel_err(a, b, rows):
+    """Largest |a - b| / max(1, |b|) over `rows`: f32 coordinates carry
+    an error in proportion to their magnitude (the random weights' maps
+    reach |xyz| ~ 1e4, where one f32 step is ~1e-3)."""
+    return float((np.abs(a - b) / np.maximum(1.0, np.abs(b)))[rows].max())
+
+
+def rectification_phase(end, seed):
+    """Phase 13c: rectify_poses, rectify_gaussians, rectify_tracker with
+    the depth write-back and retrain_gaussians on phase 12's end state with
+    a known endpoint correction, on the card and on the CPU from the same
+    snapshot; the kernels held on the card's retrain window. Returns their
+    largest errors there."""
+    import types
+    import torch
+    from vings_mono_tpu_torch.loop import rectify
+    from vings_mono_tpu_torch.loop.loop_model import LoopModel
+    from vings_mono_tpu_torch.tracker.imu import so3_exp
+    tracker, mapper, cfg = end
+    intr = tracker._intr_cache
+    corr = np.eye(4)
+    corr[:3, :3] = so3_exp(np.radians([0.5, 2.0, -0.5]))
+    corr[:3, 3] = [0.3, -0.1, 0.2]
+    b = RECT_SAVE - 1
+    res, ms = {}, {}
+    for dev in (DEVICE, "cpu"):
+        c = dict(cfg, device={"tracker": dev, "mapper": dev})
+        tr = types.SimpleNamespace(
+            video=video_copy(tracker.video, c, RECT_SAVE, dev))
+        m = mapper_copy(mapper, c, dev)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c2ws = LoopModel._history(tr)
+        new = rectify.rectify_poses(c2ws, 0, b, corr @ c2ws[b])
+        n_pruned = rectify.rectify_gaussians(m, c2ws, new)
+        xyz_rect = m.state.xyz.cpu().numpy().copy()
+        rectify.rectify_tracker(tr, new, mapper=m, intrinsic=intr,
+                                loop_start=0, loop_end=RECT_WRITEBACK)
+        with first_train_window() as window:
+            n_re = rectify.retrain_gaussians(m, tr.video, intr, 0,
+                                             RECT_RETRAIN)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            card_window, kw = window, dict(m.bin_kwargs)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+        v = tr.video
+        res[dev] = dict(
+            c2ws=c2ws, new=new, pruned=n_pruned, xyz_rect=xyz_rect,
+            alive=m.state.alive.cpu().numpy().copy(),
+            xyz=m.state.xyz.cpu().numpy().copy(),
+            poses=np.concatenate([v.poses_save[:RECT_SAVE],
+                                  v.bufs.poses[:v.counter].cpu().numpy()]),
+            disp=v.disps_up_save[:RECT_WRITEBACK + 1].copy(),
+            retrained=n_re, loss=m.last_metrics.get("total"))
+    a, bb = res[DEVICE], res["cpu"]
+    moved = float(np.abs(a["new"] - a["c2ws"])[:, :3, 3].max())
+    e_pose = float(np.abs(a["poses"] - bb["poses"]).max())
+    alive = a["alive"]
+    e_rect = rel_err(a["xyz_rect"], bb["xyz_rect"], alive)
+    e_xyz = rel_err(a["xyz"], bb["xyz"], alive)
+    big = float(np.abs(bb["xyz"][alive]).max())
+    rel = np.abs(a["disp"] - bb["disp"]) / np.maximum(np.abs(bb["disp"]),
+                                                      1e-6)
+    close = float(np.mean(rel <= 1e-3))
+    print(f"phase 13 rectification on phase 12's end state ({RECT_SAVE} "
+          f"keyframes saved, {len(a['c2ws']) - RECT_SAVE} live), endpoint "
+          f"correction at keyframe {b}: rotation 2.1 deg, translation "
+          f"{np.linalg.norm(corr[:3, 3]):.4f} (the chain moved up to "
+          f"{moved:.4f}); card vs CPU from the same snapshot: poses after "
+          f"rectify_tracker max abs diff {e_pose:.3e} (tol 1e-4), Gaussian "
+          f"xyz (|xyz| up to {big:.1f}) max |diff| / max(1, |xyz|) after "
+          f"rectify_gaussians {e_rect:.3e} (tol 1e-6), after "
+          f"retrain_gaussians over keyframes 0..{RECT_RETRAIN} "
+          f"({a['retrained']} keyframes, loss card {a['loss']:.5f}, CPU "
+          f"{bb['loss']:.5f}) {e_xyz:.3e} (tol 1e-3); written-back "
+          f"disparities over keyframes 0..{RECT_WRITEBACK}: max rel diff "
+          f"{float(rel.max()):.3e}, share within 1e-3 {close:.6f} (tol "
+          f"0.999); pruned {a['pruned']} / {bb['pruned']}; card "
+          f"{ms[DEVICE]:.1f} ms, CPU {ms['cpu']:.1f} ms", flush=True)
+    check(moved > 1e-3, "phase 13: the correction moved nothing")
+    check(e_pose <= 1e-4 and e_rect <= 1e-6 and e_xyz <= 1e-3
+          and close >= 0.999 and a["pruned"] == bb["pruned"]
+          and (a["alive"] == bb["alive"]).all()
+          and a["retrained"] == bb["retrained"] == RECT_RETRAIN + 1,
+          "phase 13: the rectification on the card left the CPU run")
+    check(np.isfinite(a["poses"]).all() and np.isfinite(a["disp"]).all(),
+          "phase 13: rectified poses or disparities not finite")
+    check(bool(card_window), "phase 13: retrain trained no window")
+    return kernels_on("phase 13", [(
+        f"retrain window's first camera ({card_window['n']} keyframes)",
+        card_window["state"], card_window["c2w"], card_window["intr"])],
+        kw, seed)
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -2294,8 +2803,6 @@ def main(argv=None):
     from vings_mono_tpu_torch.ops.rasterizer import tile_kernel as tk
     from vings_mono_tpu_torch.ops.rasterizer.projection import PK_DIM
     from vings_mono_tpu_torch.runners import run_mapping
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2462,19 +2969,29 @@ def main(argv=None):
     # ---- 11. the mapper's options on phase 4's replay
     opt_launches = mapper_options_phase(args, tk, cfg, float(np.mean(kf_ms)),
                                         win_dir, args.seed)
+    # ---- 12. smoke.yaml as committed: loop closure and dynamic masks
+    all_launches, all_errs, end = smoke_phase(args, tk)
+    # ---- 13. the learned nets and the rectification, card against CPU
+    detector_phase(args.seed + 40)
+    fastsam_phase(args.seed + 41)
+    retrain_errs = rectification_phase(end, args.seed + 50)
+    del end
+    # the slice's path: phase 12's loop renders and phase 13's retrain
+    all_errs = [max(x, y) for x, y in zip(all_errs, retrain_errs)]
     kernels = []
-    for name, line, err, err_rel, err_800 in (
-            ("rasterize_forward", 263, smoke_errs[0], smoke_errs[2],
-             fwd_err),
-            ("rasterize_backward", 423, smoke_errs[1], smoke_errs[3],
-             bwd_err["bf16"])):
+    for name, line, err, err_rel, err_vio, err_800 in (
+            ("rasterize_forward", 263, all_errs[0], all_errs[2],
+             smoke_errs[0], fwd_err),
+            ("rasterize_backward", 423, all_errs[1], all_errs[3],
+             smoke_errs[1], bwd_err["bf16"])):
         key = "fwd" if name.endswith("forward") else "bwd"
         bnd = fwd_bound if key == "fwd" else bwd_bound
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
             "replaces": f"vings_mono_tpu/ops/rasterizer/tile_kernel.py:{line}",
-            "launches": smoke_launches[name],
+            "launches": all_launches[name],
+            "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
             "launches_vo": vo_launches[name],
             "launches_mapping_replay": launches[name],
@@ -2482,11 +2999,12 @@ def main(argv=None):
             # the backward's rows reach ~1e9 at edge-on pairs (1/den), so
             # its absolute error is read against the row maximum
             "max_abs_err": err, "max_err_over_scale": err_rel,
+            "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

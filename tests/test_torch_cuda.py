@@ -175,7 +175,7 @@ def test_vio_tracker_on_the_card_follows_the_cpu_run(true_f32):
                                        rtol=0, atol=1e-3, err_msg=f)
 
 
-def test_global_ba_on_the_card_follows_the_cpu_run(true_f32):
+def global_ba_card_vs_cpu():
     """GlobalBA from the same snapshot of a tracked video on the card and
     on the CPU (f32 network, banded PCG): the same stats, poses within
     1e-3 (chip_smoke.py phase 9 holds the same at 240x432)."""
@@ -183,7 +183,6 @@ def test_global_ba_on_the_card_follows_the_cpu_run(true_f32):
     import types
     from vings_mono_tpu_torch.tracker.backend import GlobalBA
     from vings_mono_tpu_torch.tracker.video import DepthVideo
-    need_cuda()
     tr, _ = tracked("cuda")
     c = dict(tr.cfg, backend={**tr.cfg["backend"], "steps": 2})
     v = tr.video
@@ -204,6 +203,58 @@ def test_global_ba_on_the_card_follows_the_cpu_run(true_f32):
                         cpu_video.bufs.poses[:nl].numpy()])
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
     assert np.isfinite(v.disps_up_save[:ns]).all()
+
+
+def test_global_ba_on_the_card_follows_the_cpu_run(true_f32):
+    need_cuda()
+    global_ba_card_vs_cpu()
+
+
+def test_global_ba_with_default_flags_follows_the_cpu_run():
+    """The same with PyTorch's default flags (TF32 convolutions allowed),
+    as a product run has them: GlobalBA clears TF32 for its f32 network
+    itself."""
+    need_cuda()
+    assert torch.backends.cudnn.allow_tf32
+    global_ba_card_vs_cpu()
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_loop_and_dynamic_nets_on_the_card_follow_the_cpu():
+    """Self-trained SuperPoint, LightGlue and FastSAM with PyTorch's
+    default flags: the card's heat and descriptors, match scores and raw
+    maps within 1e-4 of the CPU's (each net runs in true f32 however it is
+    called)."""
+    import pathlib
+    from vings_mono_tpu_torch.models.fastsam import load_fastsam, raw_maps
+    from vings_mono_tpu_torch.models.lightglue import load_lightglue
+    from vings_mono_tpu_torch.models.superpoint import load_superpoint
+    need_cuda()
+    assert torch.backends.cudnn.allow_tf32
+    wdir = pathlib.Path(__file__).resolve().parents[1] / \
+        "vings_mono_tpu/weights"
+    rng = np.random.default_rng(0)
+    gray = torch.rand(1, 120, 160, 1)
+    rgb = rng.uniform(size=(96, 128, 3)).astype(np.float32)
+    desc = torch.nn.functional.normalize(torch.randn(64, 256), dim=-1)
+    kp = torch.rand(64, 2) * 2 - 1
+    valid = torch.rand(64) > 0.1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sp = load_superpoint(str(wdir / "superpoint_selftrained.npz"),
+                             device=dev)
+        lg = load_lightglue(str(wdir / "lightglue_selftrained.npz"),
+                            device=dev)
+        d, k, m = (x.to(dev) for x in (desc, kp, valid))
+        with torch.no_grad():
+            heat, dmap = sp(gray.to(dev))
+            scores = lg(d, d.flip(0), k, k.flip(0), m, m.flip(0))[0]
+        fs = raw_maps(load_fastsam(str(wdir / "fastsam_selftrained.npz"),
+                                   device=dev), rgb)
+        out[dev] = [x.cpu() for x in (heat, dmap, scores) + tuple(fs)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        live = b > -1e8
+        assert torch.allclose(a[live], b[live], rtol=0, atol=1e-4)
 
 
 def plane_windows(n_kf=3, h=H, w=W, f=80.0):

@@ -1,5 +1,5 @@
 """Port parity: models.droid_net against the flax DroidNet with the flax
-parameters carried across (`droid_state_dict_from_numpy`), on the weights
+parameters carried across (`flax_weights.state_dict_from_flax`), on the weights
 in the repository and on random flax parameters. f32, every output within
 1e-4 of its largest magnitude."""
 
@@ -12,6 +12,7 @@ from flax.traverse_util import flatten_dict
 
 from vings_mono_tpu.models import droid_net as jnet
 from vings_mono_tpu_torch.models import droid_net as tnet
+from vings_mono_tpu_torch.models.flax_weights import state_dict_from_flax
 
 import pathlib
 
@@ -54,7 +55,7 @@ def nets(request):
     variables = jnet.load_droid_weights(str(WEIGHTS)) \
         if request.param == "selftrained" else random_flax_params()
     tm = tnet.DroidNet()
-    tm.load_state_dict(tnet.droid_state_dict_from_numpy(
+    tm.load_state_dict(state_dict_from_flax(
         flat_numpy(variables)))
     return jnet.DroidNet(), variables, tm.eval()
 
@@ -135,7 +136,7 @@ def test_update_with_graph_agg_and_an_invalid_edge(nets):
 
 def test_state_dict_covers_every_parameter(nets):
     _, variables, tm = nets
-    sd = tnet.droid_state_dict_from_numpy(flat_numpy(variables))
+    sd = state_dict_from_flax(flat_numpy(variables))
     assert set(sd) == set(tm.state_dict())
     assert len(sd) == 102
 
@@ -192,7 +193,7 @@ def test_droid_pth_converter_round_trip(tmp_path):
     # and against the JAX converter on the same checkpoint
     jp = flat_numpy(jnet.convert_droid_checkpoint(
         {k: v.numpy() for k, v in ref.items()}))
-    sd2 = tnet.droid_state_dict_from_numpy(jp)
+    sd2 = state_dict_from_flax(jp)
     for k in want:
         assert torch.equal(sd2[k], want[k]), k
 

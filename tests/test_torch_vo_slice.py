@@ -136,7 +136,7 @@ def test_vo_slice_on_synthetic3d_with_the_trained_weights(tmp_path):
     check_files(tdir, len(tts))
 
 
-FLAGS = ["use_loop", "use_metric", "use_dynamic"]
+FLAGS = ["use_metric"]
 
 
 @pytest.mark.parametrize("flag", FLAGS)

@@ -20,12 +20,12 @@ under `torch.no_grad()`.
 
 from __future__ import annotations
 
-from typing import Dict
-
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .flax_weights import state_dict_from_flax
 
 DIM = 32
 
@@ -230,27 +230,6 @@ def normalize_image(rgb01):
 # weights carried across: flax .npz and the reference droid.pth
 # ---------------------------------------------------------------------------
 
-def droid_state_dict_from_numpy(flat: Dict[str, np.ndarray]):
-    """Flax parameters, flat `params/<module>/.../<conv>/{kernel,bias}` keys
-    (the layout of the JAX package's .npz files), -> a DroidNet state_dict.
-    Kernels are HWIO there and OIHW here."""
-    sd = {}
-    for key, v in flat.items():
-        parts = key.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
-        v = np.array(v, np.float32)
-        if parts[-1] == "kernel":
-            name = ".".join(parts[:-1]) + ".weight"
-            v = np.transpose(v, (3, 2, 0, 1))
-        elif parts[-1] == "bias":
-            name = ".".join(parts)
-        else:
-            raise KeyError(f"unexpected parameter {key}")
-        sd[name] = torch.from_numpy(np.ascontiguousarray(v))
-    return sd
-
-
 def convert_droid_checkpoint(state_dict):
     """A reference droid.pth state_dict ('module.' prefix or not) -> a
     DroidNet state_dict. The delta and weight heads are trimmed to their
@@ -302,7 +281,7 @@ def load_droid_weights(path):
     storage, cast to f32) or from a reference droid.pth."""
     if str(path).endswith(".npz"):
         with np.load(path) as z:
-            return droid_state_dict_from_numpy({k: z[k] for k in z.files})
+            return state_dict_from_flax({k: z[k] for k in z.files})
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd:
         sd = sd["model"]

@@ -21,7 +21,7 @@ product path). Both Schur-eliminate each frame's depths over a capped
 adjacency list instead of a dense (T, T, 6, HW) coupling.
 
 Every product here must run in true f32: the callers keep TF32 matmuls off
-(utils.device.f32_matmul).
+(utils.device.true_f32).
 """
 
 from __future__ import annotations

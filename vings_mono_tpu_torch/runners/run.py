@@ -14,14 +14,18 @@ dataset's `preload_imu()`, and `preload_gnss()` / `preload_odo()` where the
 dataset has them, with `frontend.c2i` from the dataset's `c2i`),
 `use_storage_manager` (paging every `storage_manager.every` frames, timed as
 stage `storage`), `middleware.variant` v3, nerfslam and v0_kitti360,
-`use_global_ba` (the terminate pass, stage `global_ba`), `use_vis` (the
-rgbdnua panel every keyframe, the map and the follow-cam BEV every tenth,
-stage `vis`), and in the mapper `use_sky`, `use_refine` (the refined poses
-go back into the tracker's window) and `training_args.coarse_frac`.
-`check_ported` raises NotImplementedError naming the first option that is
-not ported yet: `use_loop`, `use_metric`, `use_dynamic`, `parallel.dp`,
-`--resume`, `--checkpoint-every` (the dataset loader names the
-image-folder datasets).
+`use_dynamic` (the newest keyframe's dynamic pixels masked out of the
+mapper loss before mapping, stage `dynamic`), `use_loop` (loop detection
+every `looper.every` keyframes after `looper.start_after`, with pose and
+map rectification on a closure, stage `loop`; the accepted pairs become
+global-BA edges), `use_global_ba` (the terminate pass, stage `global_ba`),
+`use_vis` (the rgbdnua panel every keyframe, the map and the follow-cam BEV
+every tenth, stage `vis`), and in the mapper `use_sky`, `use_refine` (the
+refined poses go back into the tracker's window) and
+`training_args.coarse_frac`. `check_ported` raises NotImplementedError
+naming the first option that is not ported yet: `use_metric`,
+`parallel.dp`, `--resume`, `--checkpoint-every` (the dataset loader names
+the image-folder datasets).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import time
 
 import numpy as np
 
-UNPORTED_FLAGS = ("use_loop", "use_metric", "use_dynamic")
+UNPORTED_FLAGS = ("use_metric",)
 MODES = ("vo", "vo_nerfslam", "vio")
 
 
@@ -55,10 +59,11 @@ def check_ported(cfg, resume=None, checkpoint_every=None):
 
 
 def build(cfg, device=None):
-    """(dataset, tracker, mapper, storage) for a config; `device` overrides
-    the config's `device` block for tracker and mapper. With `mode: vio`
-    the tracker has its inertial layer attached; storage is None unless
-    `use_storage_manager` is set."""
+    """(dataset, tracker, mapper, storage, looper, dynamic) for a config;
+    `device` overrides the config's `device` block for tracker and mapper.
+    With `mode: vio` the tracker has its inertial layer attached; storage,
+    looper and dynamic are None unless `use_storage_manager`, `use_loop`
+    and `use_dynamic` are set."""
     from ..datasets.base import get_dataset
     from ..mapper.mapper import GaussianMapper
     from ..tracker.tracker import Tracker
@@ -85,7 +90,14 @@ def build(cfg, device=None):
     if cfg.get("use_storage_manager"):
         from ..storage.manager import StorageManager
         storage = StorageManager(cfg)
-    return dataset, tracker, mapper, storage
+    looper = dynamic = None
+    if cfg.get("use_loop"):
+        from ..loop.loop_model import LoopModel
+        looper = LoopModel(cfg, device=tracker.device)
+    if cfg.get("use_dynamic"):
+        from ..dynamic.dynamic_model import DynamicModel
+        dynamic = DynamicModel(cfg, device=mapper.device)
+    return dataset, tracker, mapper, storage, looper, dynamic
 
 
 def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
@@ -103,8 +115,10 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     from ..utils.trajectory import save_trajectory
 
     check_ported(cfg, resume, checkpoint_every)
-    dataset, tracker, mapper, storage = build(cfg, device=device)
+    dataset, tracker, mapper, storage, looper, dynamic = build(cfg,
+                                                               device=device)
     every = int(cfg["storage_manager"]["every"]) if storage else 0
+    lcfg = cfg.get("looper") or {}
 
     timer = StageTimer(sync_device=tracker.device if sync_timer else None)
     n = len(dataset) if max_frames is None else min(len(dataset),
@@ -117,11 +131,18 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
         with timer("package"):
             viz_out = judge_and_package(tracker, cfg)
         if viz_out is not None:
+            if dynamic is not None:
+                with timer("dynamic"):
+                    viz_out = dynamic.apply_to_viz_out(viz_out, mapper)
             with timer("map"):
                 mapper.run(viz_out)
             if cfg.get("use_refine") and mapper.refined_poses is not None:
                 retrieve_to_tracker(viz_out, mapper.refined_poses, tracker)
             kf_count += 1
+            if looper is not None and kf_count > lcfg["start_after"] and \
+                    kf_count % lcfg["every"] == 0:
+                with timer("loop"):
+                    looper.run(mapper, tracker, viz_out, idx)
         if storage is not None and idx % every == every - 1:
             with timer("storage"):
                 storage.run(tracker, mapper, viz_out)
@@ -134,10 +155,13 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
 
     if cfg.get("use_global_ba"):
         # terminate pass: full-trajectory BA removes the online drift the
-        # sliding window could not (no loop pairs: use_loop is not ported)
+        # sliding window could not; accepted closures anchor it
         from ..tracker.backend import GlobalBA
+        loop_pairs = [(t["cand_gid"], t["cur_gid"])
+                      for t in looper.loop_traces
+                      if "rejected" not in t] if looper is not None else []
         with timer("global_ba"):
-            stats = GlobalBA(tracker, cfg).run()
+            stats = GlobalBA(tracker, cfg, extra_edges=loop_pairs).run()
         print(f"global BA: {stats}")
     save_trajectory(tracker, save_dir)
     os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)

@@ -36,7 +36,7 @@ from ..ops import ba as ba_ops
 from ..ops import corr as corr_ops
 from ..ops import projective as pops
 from ..ops.upsample import upsample_disp
-from ..utils.device import f32_matmul
+from ..utils.device import true_f32
 
 DIST_CHUNK = 8192   # frame pairs per device distance call
 
@@ -252,9 +252,11 @@ class GlobalBA:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
+    @true_f32()
     def run(self):
         """Run the global BA; writes rectified poses/disps back into the
-        save buffers and the live window. Returns a stats dict."""
+        save buffers and the live window. Returns a stats dict. The f32
+        network and the solve run in true f32 (no TF32), as on the CPU."""
         v = self.tracker.video
         dev = self._device()
         model = self.tracker.model
@@ -342,30 +344,29 @@ class GlobalBA:
         max_span = int(np.max(np.abs(ii_p[:E] - jj_p[:E])))
         band = min(max(2 * self.band, 2 * max_span), t_cap - 1)
         stats = {}
-        with f32_matmul():
-            for _ in range(self.steps):
-                with self._stage("gru"):
-                    for s in range(0, e_cap, ce):
-                        sl = slice(s, s + ce)
-                        _gru_chunk(model.update, fmaps, inps, poses, disps,
-                                   intr, ii_d[sl], jj_d[sl], valid_d[sl], s,
-                                   nets_e[sl], target, weight, eta, upmask,
-                                   t_cap)
-                with self._stage("solve"):
-                    if self.dense_solve:
-                        poses, disps = ba_ops.ba_global(
-                            target, weight, eta, poses, disps, intr, ii_d,
-                            jj_d, valid_d, gi_d, gv_d, free,
-                            iters=self.gn_iters)
-                    else:
-                        poses, disps = ba_ops.ba_global_banded(
-                            target, weight, eta, poses, disps, intr, ii_d,
-                            jj_d, valid_d, gi_d, gv_d, free,
-                            iters=self.gn_iters, band=band,
-                            cg_iters=self.cg_iters, stats=stats)
+        for _ in range(self.steps):
+            with self._stage("gru"):
+                for s in range(0, e_cap, ce):
+                    sl = slice(s, s + ce)
+                    _gru_chunk(model.update, fmaps, inps, poses, disps,
+                               intr, ii_d[sl], jj_d[sl], valid_d[sl], s,
+                               nets_e[sl], target, weight, eta, upmask,
+                               t_cap)
+            with self._stage("solve"):
+                if self.dense_solve:
+                    poses, disps = ba_ops.ba_global(
+                        target, weight, eta, poses, disps, intr, ii_d,
+                        jj_d, valid_d, gi_d, gv_d, free,
+                        iters=self.gn_iters)
+                else:
+                    poses, disps = ba_ops.ba_global_banded(
+                        target, weight, eta, poses, disps, intr, ii_d,
+                        jj_d, valid_d, gi_d, gv_d, free,
+                        iters=self.gn_iters, band=band,
+                        cg_iters=self.cg_iters, stats=stats)
 
-            # ---- write back ----------------------------------------------
-            disps_up = upsample_disp(disps[:T], upmask[:T])
+        # ---- write back ----------------------------------------------
+        disps_up = upsample_disp(disps[:T], upmask[:T])
         poses_h = poses[:T].cpu().numpy()
         disps_h = disps[:T].cpu().numpy()
         disps_up_h = disps_up.cpu().numpy()

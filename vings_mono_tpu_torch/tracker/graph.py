@@ -38,7 +38,6 @@ from ..ops import corr as corr_ops
 from ..ops import lie
 from ..ops import projective as pops
 from ..ops.upsample import upsample_disp
-from ..utils.device import f32_matmul
 from .video import DepthVideo, VideoBuffers
 
 
@@ -367,11 +366,10 @@ class CovisibleGraph:
         # it is stored as bf16
         B = self.edge_batch
         dev = self._upload(slots, ii, jj).reshape(3, n_room)
-        with f32_matmul():
-            for s0 in range(0, n_room, B):
-                sl = slice(s0, s0 + B)
-                _add_edges_kernel(self.edges, self.video.bufs, dev[0, sl],
-                                  dev[1, sl], dev[2, sl])
+        for s0 in range(0, n_room, B):
+            sl = slice(s0, s0 + B)
+            _add_edges_kernel(self.edges, self.video.bufs, dev[0, sl],
+                              dev[1, sl], dev[2, sl])
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros(len(ii), np.int64)])
@@ -471,26 +469,25 @@ class CovisibleGraph:
         self._next_update_cov = False
         inertial = self.inertial is not None and self.video.imu_enabled
         bufs = self.video.bufs
-        with f32_matmul():
-            out = _fused_update(
-                self.update_module, bufs, self.edges, self.inac,
-                packed, n_act=len(self.ii), n_inac=int(m.sum()), base=base,
-                t0=t0, ii_max=int(self.ii.max()), jj_max=int(self.jj.max()),
-                imu_enabled=self.video.imu_enabled,
-                visual_only=self.video.visual_only_init, w_ba=self.w_ba,
-                iters=iters, far_threshold=self.far_threshold,
-                mask_threshold=self.mask_threshold, compute_cov=compute_cov,
-                bf16=self.bf16_gru, do_ba=not inertial)
-            if inertial:
-                # GRU on the device, pose fusion on the host factor graph
-                (tgt, wgt, eta_ba, all_ii, all_jj, all_valid, poses_win,
-                 disps_win, dsens_win, intr_win, up_mask, has_edge) = out
-                poses_win, disps_win = self.inertial.multi_sensor_ba(
-                    tgt, wgt, eta_ba, all_ii, all_jj, all_valid,
-                    self._window_edges(base, m), base, t1, poses_win,
-                    disps_win, intr_win)
-                _finish_update(bufs, base, poses_win, disps_win, dsens_win,
-                               up_mask, has_edge)
+        out = _fused_update(
+            self.update_module, bufs, self.edges, self.inac,
+            packed, n_act=len(self.ii), n_inac=int(m.sum()), base=base,
+            t0=t0, ii_max=int(self.ii.max()), jj_max=int(self.jj.max()),
+            imu_enabled=self.video.imu_enabled,
+            visual_only=self.video.visual_only_init, w_ba=self.w_ba,
+            iters=iters, far_threshold=self.far_threshold,
+            mask_threshold=self.mask_threshold, compute_cov=compute_cov,
+            bf16=self.bf16_gru, do_ba=not inertial)
+        if inertial:
+            # GRU on the device, pose fusion on the host factor graph
+            (tgt, wgt, eta_ba, all_ii, all_jj, all_valid, poses_win,
+             disps_win, dsens_win, intr_win, up_mask, has_edge) = out
+            poses_win, disps_win = self.inertial.multi_sensor_ba(
+                tgt, wgt, eta_ba, all_ii, all_jj, all_valid,
+                self._window_edges(base, m), base, t1, poses_win,
+                disps_win, intr_win)
+            _finish_update(bufs, base, poses_win, disps_win, dsens_win,
+                           up_mask, has_edge)
         self.age += 1
 
     def _window_edges(self, base, m):

@@ -10,7 +10,6 @@ import torch
 from ..models.droid_net import normalize_image
 from ..ops import corr as corr_ops
 from ..ops import lie, projective as pops
-from ..utils.device import f32_matmul
 from .video import DepthVideo
 
 
@@ -81,9 +80,8 @@ class MotionFilter:
             fmap = _features(self.model, image)
             mag = float("inf")
         else:
-            with f32_matmul():
-                fmap, mag_dev = _features_and_gate(
-                    self.model, image, self.fmap, self.net, self.inp)
+            fmap, mag_dev = _features_and_gate(
+                self.model, image, self.fmap, self.net, self.inp)
             mag = float(mag_dev)   # the frame's one wait for the device
         if mag > self.thresh:
             self.count = 0

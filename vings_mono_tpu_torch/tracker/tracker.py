@@ -10,9 +10,9 @@ import copy
 import numpy as np
 import torch
 
-from ..models.droid_net import (DroidNet, droid_state_dict_from_numpy,
-                                load_droid_weights)
-from ..utils.device import resolve_device
+from ..models.droid_net import DroidNet, load_droid_weights
+from ..models.flax_weights import state_dict_from_flax
+from ..utils.device import resolve_device, true_f32
 from .frontend import Frontend
 from .graph import CovisibleGraph
 from .motion_filter import MotionFilter
@@ -36,7 +36,7 @@ class Tracker:
             self.model = DroidNet(generator=generator)
         else:
             if not all(isinstance(v, torch.Tensor) for v in params.values()):
-                params = droid_state_dict_from_numpy(params)
+                params = state_dict_from_flax(params)
             self.model = DroidNet()
             self.model.load_state_dict(params)
         self.model.to(self.device).eval().requires_grad_(False)
@@ -71,8 +71,10 @@ class Tracker:
         depth = data_packet.get("depth")
         if depth is not None:
             depth = torch.as_tensor(depth).to(self.device, torch.float32)
-        self.filter.track(ts, rgb, depth, intr)
-        self.frontend()
+        # f32 networks (bf16_gru off) and the BA in true f32, as on the CPU
+        with true_f32():
+            self.filter.track(ts, rgb, depth, intr)
+            self.frontend()
 
     @property
     def new_frame_added(self):

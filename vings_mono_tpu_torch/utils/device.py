@@ -18,12 +18,19 @@ def resolve_device(device):
 
 
 @contextlib.contextmanager
-def f32_matmul():
-    """Run f32 matmuls in true f32 (no TF32) inside the block: the BA's
-    normal equations and the correlation volume need f32 conditioning."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+def true_f32():
+    """Run f32 matmuls and cuDNN convolutions in true f32 (no TF32) inside
+    the block, as the reference computes them: the BA's normal equations
+    and the correlation volume need f32 conditioning, and the f32 networks
+    (DroidNet in global BA or with `bf16_gru` off, SuperPoint, LightGlue,
+    FastSAM) are held to the CPU's f32 results. PyTorch's default leaves
+    `cudnn.allow_tf32` on, so every f32 network call runs inside this."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
