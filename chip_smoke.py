@@ -50,15 +50,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      cv2 does not import), and both kernels against their plain twins on
      the first 131072 host-paged rows under the map's 480x640 camera, as
      `vis_map` renders them;
-  9. the slice's main path: `runners.run.run` on
-     `configs/synthetic/smoke_vio.yaml` as committed (`mode: vio`, storage
-     every 10 frames, `use_vis`, `use_global_ba`, 30 frames at 240x432);
-     prints the stage times, the global BA's stats and parts, the vis
-     arrays, holds both kernels against their plain twins on the trained
-     map under the run's own cameras (the newest keyframe's at 240x432,
-     the map's at 480x640, the follow-cam's at 320x320), and holds the
-     global BA on the card against the same pass on the CPU from the same
-     snapshot of the video's buffers;
+  9. `runners.run.run` on `configs/synthetic/smoke_vio.yaml` as committed
+     (`mode: vio`, storage every 10 frames, `use_vis`, `use_global_ba`, 30
+     frames at 240x432); prints the stage times, the global BA's stats and
+     parts, the vis arrays, holds both kernels against their plain twins on
+     the trained map under the run's own cameras (the newest keyframe's at
+     240x432, the map's at 480x640, the follow-cam's at 320x320), and holds
+     the global BA on the card against the same pass on the CPU from the
+     same snapshot of the video's buffers;
  10. (run right after phase 7, on its tracker) GlobalBA with the backend
      defaults at 240x800: times of re-encode, edge proposal, GRU rounds
      and solve, edges, peak memory, synchronizing calls, ATE before and
@@ -72,17 +71,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain twins on the sky sphere's pairs and at 120x400, and refine's
      gradient with respect to the pose through the kernels against the
      gradient through the plain twins;
- 12. the slice's main path: `runners.run.run` on
-     `configs/synthetic/smoke.yaml` as committed (`mode: vo` with loop
-     closure, dynamic masks, sky, refine, storage, vis and global BA, 30
-     frames at 240x432, random DroidNet and SuperPoint weights from the
-     seed); prints the stage times (`loop` and `dynamic` among them), the
-     loop attempts with the stage each reached, the closures accepted, the
-     dynamic pixels masked and the kernels' launches, and holds both
-     kernels against their plain twins on the loop path's own inputs (the
-     verify render at the recovered pose, or the render at the current
-     pose, culled to 60 m; the first retrain window when a closure was
-     accepted);
+ 12. `runners.run.run` on `configs/synthetic/smoke.yaml` as committed
+     (`mode: vo` with loop closure, dynamic masks, sky, refine, storage, vis
+     and global BA, 30 frames at 240x432, random DroidNet and SuperPoint
+     weights from the seed); prints the stage times (`loop` and `dynamic`
+     among them), the loop attempts with the stage each reached, the
+     closures accepted, the dynamic pixels masked and the kernels' launches,
+     and holds both kernels against their plain twins on the loop path's own
+     inputs (the verify render at the recovered pose, or the render at the
+     current pose, culled to 60 m; the first retrain window when a closure
+     was accepted);
  13. the learned nets and the rectification on the card against the CPU:
      self-trained SuperPoint + LightGlue (2 layers) on pairs of room views
      at 240x320 through extract, match and PnP (heat and descriptor error,
@@ -90,7 +88,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      self-trained FastSAM at 240x432 (raw-map error, mask IoU, ms per
      call); `rectify_poses`, `rectify_gaussians`, `rectify_tracker` with the
      depth write-back and `retrain_gaussians` on phase 12's end state with
-     a known endpoint correction, from the same snapshot on both.
+     a known endpoint correction, from the same snapshot on both;
+ 14. the slice's main path: metric depth, sessions and the evaluation
+     harness. The self-trained DPT (`MetricDepth`, flax backend) on the
+     card against the CPU on three room frames at 240x432; then
+     `runners.run.run` on `configs/synthetic/smoke.yaml` with `use_metric`
+     (that DPT) on the `synthetic3d` room (30 frames at 240x432), the
+     overrides written to a temporary YAML, saving the session every 10
+     frames: the stage times (`metric`, `checkpoint` among them), the share
+     of positive `disps_sens` and the median prior depth, ATE
+     (`eval_trajectory`), PSNR (`eval_psnr`), `bench_mfu`, the launches,
+     the session's size and save ms; both kernels held against their
+     plain twins on eval_psnr's render; the same run again (the card's
+     spread); and `--resume` from the frame-20 session to frame 30 (load
+     ms, keyframe count, pose gap to the first run).
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`).
 The second-to-last line is the card's name and power limit, the last line
@@ -2768,6 +2779,245 @@ def rectification_phase(end, seed):
         kw, seed)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: metric depth, sessions and the evaluation harness
+# ---------------------------------------------------------------------------
+
+METRIC_W = ROOT / "vings_mono_tpu/weights/metric_depth_selftrained.npz"
+METRIC_OVERRIDES = {
+    "use_metric": True,
+    "metric": {"backend": "flax",
+               "weights": str(METRIC_W)},
+    "dataset": {"module": "synthetic3d", "n_frames": 30}}
+CHECKPOINT_EVERY = 10
+RESUME_AT = 20
+
+
+def metric_depth_phase(cfg):
+    """Phase 14a: MetricDepth's flax backend (the self-trained DPT) on the
+    card against the CPU on three room frames at 240x432; warm ms per
+    call on the card (the frame's upload included, as the runner calls
+    it)."""
+    import torch
+    from vings_mono_tpu_torch.datasets.base import get_dataset
+    from vings_mono_tpu_torch.models.metric_depth import MetricDepth
+    ds = get_dataset(cfg)
+    rgbs = [ds[k]["rgb"] for k in (0, 10, 20)]
+    card = MetricDepth(cfg, device=DEVICE)
+    cpu = MetricDepth(cfg, device="cpu")
+    errs = []
+    for rgb in rgbs:
+        a = card.predict(rgb, None).cpu()
+        b = cpu.predict(rgb, None)
+        check(a.shape == b.shape == rgb.shape[:2]
+              and bool(torch.isfinite(a).all()), "phase 14 metric depth "
+              "has the wrong shape or is not finite")
+        errs.append(float((a - b).abs().max() / b.abs().max()))
+    ms = cuda_ms(lambda: card.predict(rgbs[0], None), 10, warmup=2)
+    print(f"phase 14 metric depth (self-trained DPT dim 192, depth 6, hw "
+          f"128x160) at {rgbs[0].shape[0]}x{rgbs[0].shape[1]}: card vs CPU "
+          f"relative error {['%.3e' % e for e in errs]}, {ms:.3f} ms per "
+          f"call warm on the card", flush=True)
+    check(max(errs) < 1e-4, f"phase 14 metric depth card vs CPU "
+          f"{max(errs):.3e} (tolerance 1e-4 of the largest depth)")
+
+
+def poses_by_ts(tracker):
+    from vings_mono_tpu_torch.utils.trajectory import tracker_c2ws
+    ts, c2ws = tracker_c2ws(tracker)
+    return {round(t, 6): np.asarray(m) for t, m in zip(ts, c2ws)}
+
+
+def pose_gap(a, b, frames):
+    """Largest camera-center distance and rotation angle (deg) between two
+    trajectories over the given frame timestamps."""
+    dist = ang = 0.0
+    for t in frames:
+        ma, mb = a[float(t)], b[float(t)]
+        dist = max(dist, float(np.linalg.norm(ma[:3, 3] - mb[:3, 3])))
+        c = (np.trace(ma[:3, :3].T @ mb[:3, :3]) - 1.0) / 2.0
+        ang = max(ang, float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+    return dist, ang
+
+
+def metric_session_phase(args, tk):
+    """Phase 14, this slice's main path: `runners.run.run` on smoke.yaml
+    with use_metric (the flax DPT) on synthetic3d, checkpointing every 10
+    frames; the evaluation harness and the MFU over it; the kernels on
+    eval_psnr's render; a second identical run for the card's spread; the
+    resume from the frame-20 session. Returns the launch counts and the
+    kernels' largest errors."""
+    import tempfile
+    import torch
+    import yaml
+    from vings_mono_tpu_torch.datasets.base import get_dataset
+    from vings_mono_tpu_torch.runners import evaluate
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.utils import checkpoint as ckpt_mod
+    from vings_mono_tpu_torch.utils.config import load_config
+    from vings_mono_tpu_torch.utils.mfu import bench_mfu
+    root = OUT / "metric"
+    shutil.rmtree(root, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "smoke_metric.yaml"
+        path.write_text(yaml.safe_dump(load_config(str(SMOKE), overrides={
+            **METRIC_OVERRIDES, "output": {"save_dir": str(root)},
+            "device": {"tracker": DEVICE, "mapper": DEVICE}})))
+        cfg = load_config(str(path))
+    h, w = (int(x) for x in cfg["frontend"]["image_size"])
+    n_frames = int(cfg["dataset"]["n_frames"])
+    print(f"phase 14 config: {SMOKE.relative_to(ROOT)} with "
+          f"{METRIC_OVERRIDES} written to a temporary YAML (mode "
+          f"{cfg['mode']}, use_loop, use_dynamic, use_sky, use_refine, "
+          f"storage, vis and global BA as committed; {n_frames} frames at "
+          f"{h}x{w}); --checkpoint-every {CHECKPOINT_EVERY}", flush=True)
+    metric_depth_phase(cfg)
+
+    def one_run(tag, **kw):
+        """A run; its live window's c2w at the end of frames RESUME_AT - 1
+        (what the session holds) and RESUME_AT (the first resumed
+        frame)."""
+        snaps = {}
+
+        def on_frame(idx, tracker, *_):
+            if idx in (RESUME_AT - 1, RESUME_AT):
+                snaps[idx] = tracker.video.c2w_matrices()
+        tk.rasterize_forward.launches = 0
+        tk.rasterize_backward.launches = 0
+        t0 = time.perf_counter()
+        out = run_mod.run(cfg, str(root / tag), sync_timer=True,
+                          on_frame=on_frame, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"rasterize_forward": tk.rasterize_forward.launches,
+                    "rasterize_backward": tk.rasterize_backward.launches}
+        return out, wall, launches, snaps
+
+    def max_gap(a, b):
+        return float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())
+
+    (tracker, mapper, timer), wall, launches, snaps = one_run(
+        "run", checkpoint_every=CHECKPOINT_EVERY)
+    smi = nvidia_smi()
+    print(timer.report().replace("\n", "\nphase 14 ").replace(
+        "stage times", "phase 14 stage times"), flush=True)
+    v = tracker.video
+    n_kf = v.counter + v.count_save
+    ds = v.bufs.disps_sens[:v.counter]
+    pos = float((ds > 0).float().mean())
+    med = float(1.0 / ds[ds > 0].median()) if pos > 0 else float("nan")
+    session = root / "run" / "session"
+    mb = sum(f.stat().st_size for f in session.iterdir()) / 1e6
+    save_ms = 1e3 * timer.totals["checkpoint"] / timer.counts["checkpoint"]
+    dataset = get_dataset(cfg)
+    ate = evaluate.eval_trajectory(str(root / "run"), dataset)
+    psnr_renders = []
+    render = mapper.render_at
+
+    def rec_render(w2c, intr, max_dist=None):
+        psnr_renders.append((np.linalg.inv(w2c.cpu().numpy()), dict(intr)))
+        return render(w2c, intr, max_dist)
+    mapper.render_at = rec_render
+    t0 = time.perf_counter()
+    psnr = evaluate.eval_psnr(mapper, tracker)
+    psnr_ms = 1e3 * (time.perf_counter() - t0)
+    del mapper.render_at
+    t0 = time.perf_counter()
+    mfu = bench_mfu(tracker, mapper, n_frames, mapper.time_idx, wall)
+    mfu_s = time.perf_counter() - t0
+    print(f"phase 14 run [{smi}]: {n_frames} frames in {wall:.1f} s, "
+          f"{n_kf} keyframes, the mapper trained on {mapper.time_idx}; "
+          f"disps_sens positive share {pos:.4f} over {v.counter} live "
+          f"keyframes, median prior depth {med:.3f}; ATE rmse {ate:.4f} "
+          f"(eval_trajectory, scale-aligned), PSNR {psnr:.3f} dB "
+          f"(eval_psnr over {len(psnr_renders)} keyframes, {psnr_ms:.1f} "
+          f"ms); session {mb:.1f} MB, save_session {save_ms:.1f} ms "
+          f"(n={timer.counts['checkpoint']}); launches {launches}",
+          flush=True)
+    print(f"phase 14 bench_mfu (H100 dense bf16 peak 989 TFLOP/s; counted "
+          f"in {mfu_s:.1f} s after the run): {json.dumps(mfu)}", flush=True)
+    for stage in ("metric", "track", "map", "checkpoint", "global_ba"):
+        check(stage in timer.totals, f"phase 14: no {stage} stage")
+    check(timer.counts["metric"] == n_frames, "phase 14: the metric stage "
+          "did not run every frame")
+    check(timer.counts["checkpoint"] == (n_frames - 1) // CHECKPOINT_EVERY,
+          "phase 14: the session was not saved every 10 frames")
+    check(pos > 0.9, f"phase 14: disps_sens positive share {pos}")
+    check(0.3 < med < 40.0, f"phase 14: median prior depth {med}")
+    check(ate is not None and np.isfinite(ate), "phase 14: no ATE")
+    check(psnr is not None and np.isfinite(psnr), "phase 14: no PSNR")
+    check(mfu["flops_train_loop"] > 0 and mfu["flops_fused_update"] > 0,
+          "phase 14: bench_mfu counted nothing")
+    for name, cnt in launches.items():
+        check(cnt >= mapper.time_idx * int(cfg["training_args"]["iters"]),
+              f"{name} launched {cnt} times in phase 14")
+    check(bool(torch.isfinite(v.bufs.poses[:v.counter]).all()),
+          "phase 14 poses are not finite")
+    c2w, intr = psnr_renders[-1]
+    errs = kernels_on("phase 14", [(
+        f"eval_psnr's render of its last keyframe", mapper.state, c2w,
+        intr)], dict(mapper.bin_kwargs), args.seed + 60)
+    first = poses_by_ts(tracker)
+    del tracker, mapper
+
+    (again, _, _), wall2, _, snaps2 = one_run("again")
+    frames = range(RESUME_AT, n_frames)
+    spread = pose_gap(first, poses_by_ts(again), frames)
+    spread_1 = max_gap(snaps[RESUME_AT], snaps2[RESUME_AT])
+    ate2 = evaluate.eval_trajectory(str(root / "again"), dataset)
+    print(f"phase 14 the same run again (the card's nondeterministic "
+          f"sums): {wall2:.1f} s, ATE rmse {ate2:.4f}; the window after "
+          f"frame {RESUME_AT} within {spread_1:.4e} units of the first "
+          f"run's, the final poses of frames {RESUME_AT}-{n_frames - 1} "
+          f"within {spread[0]:.4e} units / {spread[1]:.4e} deg", flush=True)
+    del again
+
+    # the session on disk is the last one saved: before frame RESUME_AT
+    host = ckpt_mod.load_host(str(session))
+    check(host["counter"] + host["count_save"] == RESUME_AT,
+          f"phase 14: the session holds {host['counter']} + "
+          f"{host['count_save']} keyframes, not {RESUME_AT}")
+    load_ms, loaded = [], []
+    load = ckpt_mod.load_session
+
+    def timed_load(path, tracker, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(path, tracker, *a, **k)
+        torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+        loaded.append(tracker.video.c2w_matrices())
+        return out
+    with replaced(ckpt_mod, "load_session", timed_load):
+        (resumed, _, rtimer), wall3, _, snaps3 = one_run(
+            "resumed", resume=str(session))
+    rv = resumed.video
+    gap = pose_gap(first, poses_by_ts(resumed), frames)
+    gap_1 = max_gap(snaps[RESUME_AT], snaps3[RESUME_AT])
+    ate3 = evaluate.eval_trajectory(str(root / "resumed"), dataset)
+    exact = np.array_equal(loaded[0], snaps[RESUME_AT - 1])
+    print(f"phase 14 resume from the frame-{RESUME_AT} session: "
+          f"load_session {load_ms[0]:.1f} ms, the loaded window "
+          f"{'bitwise equal to' if exact else 'NOT equal to'} the first "
+          f"run's at the save; frames {RESUME_AT}-{n_frames - 1} in "
+          f"{wall3:.1f} s, {rv.counter + rv.count_save} keyframes, ATE rmse "
+          f"{ate3:.4f}; the window after frame {RESUME_AT} within "
+          f"{gap_1:.4e} units of the first run's (the same run again: "
+          f"{spread_1:.4e}), the final poses of frames {RESUME_AT}-"
+          f"{n_frames - 1} within {gap[0]:.4e} units / {gap[1]:.4e} deg "
+          f"(again: {spread[0]:.4e} / {spread[1]:.4e}); the resumed mapper "
+          f"starts fresh Adam moments, sky and random stream, and its loop "
+          f"detection counts keyframes from the resume", flush=True)
+    check(exact, "phase 14: the loaded window differs from the saved one")
+    check(sorted(snaps3) == [RESUME_AT], "phase 14: the resume did not "
+          f"start at frame {RESUME_AT}")
+    check(rv.counter + rv.count_save == n_kf, "phase 14: the resumed run "
+          "ends with another keyframe count")
+    check(bool(torch.isfinite(rv.bufs.poses[:rv.counter]).all()),
+          "phase 14 resumed poses are not finite")
+    return launches, errs
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -2976,21 +3226,24 @@ def main(argv=None):
     fastsam_phase(args.seed + 41)
     retrain_errs = rectification_phase(end, args.seed + 50)
     del end
-    # the slice's path: phase 12's loop renders and phase 13's retrain
+    # phase 12's loop renders and phase 13's retrain
     all_errs = [max(x, y) for x, y in zip(all_errs, retrain_errs)]
+    # ---- 14. metric depth, sessions, the evaluation harness: the main path
+    main_launches, main_errs = metric_session_phase(args, tk)
     kernels = []
-    for name, line, err, err_rel, err_vio, err_800 in (
-            ("rasterize_forward", 263, all_errs[0], all_errs[2],
-             smoke_errs[0], fwd_err),
-            ("rasterize_backward", 423, all_errs[1], all_errs[3],
-             smoke_errs[1], bwd_err["bf16"])):
+    for name, line, err, err_rel, err_smoke, err_vio, err_800 in (
+            ("rasterize_forward", 263, main_errs[0], main_errs[2],
+             all_errs[0], smoke_errs[0], fwd_err),
+            ("rasterize_backward", 423, main_errs[1], main_errs[3],
+             all_errs[1], smoke_errs[1], bwd_err["bf16"])):
         key = "fwd" if name.endswith("forward") else "bwd"
         bnd = fwd_bound if key == "fwd" else bwd_bound
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
             "replaces": f"vings_mono_tpu/ops/rasterizer/tile_kernel.py:{line}",
-            "launches": all_launches[name],
+            "launches": main_launches[name],
+            "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
             "launches_vo": vo_launches[name],
@@ -2999,12 +3252,13 @@ def main(argv=None):
             # the backward's rows reach ~1e9 at edge-on pairs (1/den), so
             # its absolute error is read against the row maximum
             "max_abs_err": err, "max_err_over_scale": err_rel,
+            "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -342,3 +342,77 @@ def test_mapper_options_on_the_card_follow_the_cpu(option):
         assert np.isfinite(a.refined_poses.cpu().numpy()).all()
     if option == "coarse":
         assert a._binned_c is not None
+
+
+def test_dpt_on_the_card_follows_the_cpu():
+    """The self-trained metric-depth DPT with PyTorch's default flags, at
+    240x432 (the antialiased resize to 128x160 and back): the card's depth
+    within 1e-4 relative of the CPU's (true f32 however it is called)."""
+    import pathlib
+    from vings_mono_tpu_torch.models.dpt_depth import load_dpt
+    need_cuda()
+    assert torch.backends.cudnn.allow_tf32
+    weights = pathlib.Path(__file__).resolve().parents[1] / \
+        "vings_mono_tpu/weights/metric_depth_selftrained.npz"
+    x = torch.rand(2, 240, 432, 3, generator=torch.Generator().manual_seed(0))
+    out = {dev: load_dpt(str(weights), device=dev)[1](x.to(dev)).cpu()
+           for dev in ("cuda", "cpu")}
+    assert out["cuda"].shape == (2, 240, 432)
+    rel = (out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()
+    assert float(rel) < 1e-4
+
+
+def test_session_round_trip_on_the_card_as_on_the_cpu(tmp_path, true_f32):
+    """A session the card's tracker and mapper write loads into a fresh
+    card tracker bit for bit (buffers, edge state, map; the rebuilt
+    correlation pyramids to one bf16 step) and into a CPU
+    tracker, which then tracks the next frames as the card's tracker does
+    (poses within 1e-2, the card-vs-CPU tolerance above)."""
+    from vings_mono_tpu_torch.utils.checkpoint import (load_session,
+                                                       save_session)
+    need_cuda()
+    c = cfg(0.0)
+    c["mapper"].update({"capacity": 4096, "pair_capacity": 4096,
+                        "chunk": 64, "visible_capacity": 2048,
+                        "points_per_frame": 256, "points_first_frame": 512})
+    c["training_args"] = dict(c["training_args"], iters=4)
+    stream = list(frames(20))
+    tr = Tracker(c, H, W, device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    mp = GaussianMapper(c, device="cuda")
+    for pkt in stream[:16]:
+        tr.track(pkt)
+        viz = middleware.judge_and_package(tr, c)
+        if viz is not None:
+            mp.run(viz)
+    assert mp.initialized and tr.video.count_save > 0
+    save_session(str(tmp_path), tr, mp)
+    loaded = {}
+    for dev in ("cuda", "cpu"):
+        t2 = Tracker(c, H, W, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+        m2 = GaussianMapper(c, device=dev)
+        load_session(str(tmp_path), t2, m2)
+        loaded[dev] = t2
+        for f in tr.video.bufs.fields():
+            assert torch.equal(getattr(t2.video.bufs, f).cpu(),
+                               getattr(tr.video.bufs, f).cpu()), f
+        for f in ("net", "inp", "target", "weight"):
+            assert torch.equal(getattr(t2.graph.edges, f).cpu(),
+                               getattr(tr.graph.edges, f).cpu()), f
+        # the live slots' pyramids are rebuilt, in other batches than the
+        # live graph built them: to one bf16 rounding step
+        live = torch.from_numpy(tr.graph.slot)
+        torch.testing.assert_close(
+            t2.graph.edges.corr1[live.to(dev)].float().cpu(),
+            tr.graph.edges.corr1[live.cuda()].float().cpu(),
+            rtol=2.0 ** -7, atol=1e-6)
+        assert torch.equal(m2.state.xyz.cpu(), mp.state.xyz.cpu())
+    for pkt in stream[16:]:
+        for t in (tr, loaded["cpu"]):
+            t.track(pkt)
+    n = tr.video.counter
+    assert loaded["cpu"].video.counter == n
+    np.testing.assert_allclose(loaded["cpu"].video.bufs.poses[:n].numpy(),
+                               tr.video.bufs.poses[:n].cpu().numpy(),
+                               atol=1e-2)

@@ -153,16 +153,18 @@ KITTI_0028 = ROOT / "configs/kitti/sync/kitti_2011_09_30_drive_0028.yaml"
 def test_check_ported_accepts_and_refuses(config):
     """`check_ported` accepts smoke_vio.yaml and the KITTI 2011_09_30_drive_
     0028 configuration as committed (use_vis, use_global_ba, storage, vio),
-    and the mapper options use_sky, use_refine and coarse_frac, use_loop
-    and use_dynamic; it still raises, naming it, for use_metric,
-    parallel.dp, --resume and --checkpoint-every."""
+    and the mapper options use_sky, use_refine and coarse_frac, use_loop,
+    use_dynamic and use_metric; it still raises, naming it, for
+    parallel.dp (--resume and --checkpoint-every are run by
+    tests/test_torch_vo_slice.py test_ported_option_runs)."""
     from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
     cfg = load_config(str(config))
     run_t.check_ported(cfg)
     opts = dict(cfg, use_sky=True, use_refine=True,
                 training_args={**cfg["training_args"], "coarse_frac": 0.5})
     run_t.check_ported(opts)
-    run_t.check_ported(dict(cfg, use_loop=True, use_dynamic=True))
+    run_t.check_ported(dict(cfg, use_loop=True, use_dynamic=True,
+                            use_metric=True))
     small = load_config(str(config), {"mapper": {"capacity": 1024,
                                                  "pair_capacity": 1024}})
     mapper = GaussianMapper(dict(small, use_sky=True, use_refine=True,
@@ -170,13 +172,7 @@ def test_check_ported_accepts_and_refuses(config):
                                                 "coarse_frac": 0.5}),
                             device="cpu")
     assert mapper.sky is not None and mapper.coarse_frac == 0.5
-    with pytest.raises(NotImplementedError, match="use_metric"):
-        run_t.check_ported(dict(cfg, use_metric=True))
     with pytest.raises(NotImplementedError, match="parallel.dp"):
         run_t.check_ported(dict(cfg, parallel={"dp": 2}))
     with pytest.raises(NotImplementedError, match="parallel.dp"):
         GaussianMapper(dict(small, parallel={"dp": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="--resume"):
-        run_t.check_ported(cfg, resume="session")
-    with pytest.raises(NotImplementedError, match="--checkpoint-every"):
-        run_t.check_ported(cfg, checkpoint_every=5)

@@ -354,16 +354,20 @@ def test_uint8_frames_are_converted_on_the_device():
 
 
 def test_inertial_layer_and_monitor_raise():
-    """The monitor is not ported and raises; the inertial layer is ported
-    (tests/test_torch_vio.py): attaching one wires it into the graph."""
+    """Neither raises any more: attaching an inertial layer
+    (tests/test_torch_vio.py) wires it into the graph, and
+    `frontend.show_plot` gives the frontend a FrontendMonitor
+    (tests/test_torch_monitor.py), which is None without it."""
+    from vings_mono_tpu_torch.utils.monitor import FrontendMonitor
     _, tcfg = make_cfgs()
     tr = Tracker(tcfg, H, W, device="cpu")
     layer = object()
     tr.frontend.attach_inertial(layer)
     assert tr.frontend.inertial is layer and tr.graph.inertial is layer
+    assert tr.frontend.monitor is None
     _, tcfg = make_cfgs(show_plot=True)
-    with pytest.raises(NotImplementedError, match="show_plot"):
-        Tracker(tcfg, H, W, device="cpu")
+    tr = Tracker(tcfg, H, W, device="cpu")
+    assert isinstance(tr.frontend.monitor, FrontendMonitor)
 
 
 def test_filter_edges_and_reseed_targets(sequence):

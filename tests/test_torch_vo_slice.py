@@ -136,54 +136,125 @@ def test_vo_slice_on_synthetic3d_with_the_trained_weights(tmp_path):
     check_files(tdir, len(tts))
 
 
-FLAGS = ["use_metric"]
+METRIC_WEIGHTS = ROOT / "vings_mono_tpu/weights/metric_depth_selftrained.npz"
+SMALL = {"dataset": {"module": "synthetic", "n_frames": 12},
+         "frontend": {"image_size": [32, 32], "buffer": 16, "ba_window": 8,
+                      "filter_thresh": -1.0, "keyframe_thresh": 0.0},
+         "training_args": {"iters": 4, "num_keyframe": 3},
+         "mapper": {"capacity": 4096, "pair_capacity": 4096, "chunk": 64,
+                    "kf_capacity": 4, "points_per_frame": 256,
+                    "points_first_frame": 512},
+         "middleware": {"max_depth": 1000.0, "cov_times": 1e9}}
 
 
-@pytest.mark.parametrize("flag", FLAGS)
-def test_unported_flag_raises_its_name(flag, tmp_path):
-    cfg = load_config(overrides={
-        flag: True, "dataset": {"module": "synthetic", "n_frames": 2},
-        "frontend": {"image_size": [32, 32]}})
-    with pytest.raises(NotImplementedError, match=flag):
-        run_vo.build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=flag):
-        run_vo.run(cfg, str(tmp_path), device="cpu")
+def small_cfg(tmp_path, **extra):
+    return load_config(overrides={**SMALL, **extra,
+                                  "output": {"save_dir": str(tmp_path)}})
 
 
-@pytest.mark.parametrize("what", ["mode_unknown", "resume",
-                                  "checkpoint_every", "dataset",
-                                  "main_resume", "main_checkpoint_every",
-                                  "parallel_dp"])
+SESSION_FILES = ("video.npz", "save_buffers.npz", "graph.npz", "host.pkl",
+                 "mapper.npz")
+
+
+@pytest.mark.parametrize("what", ["use_metric", "resume",
+                                  "checkpoint_every", "main_resume",
+                                  "main_checkpoint_every"])
+def test_ported_option_runs(what, tmp_path):
+    """The options the runner took over in turn, each run on the CPU at
+    32x32 through `run` or `main` with its effect checked: use_metric sets
+    every keyframe's disps_sens from the self-trained DPT (stage `metric`);
+    --checkpoint-every 10 writes the session before frame 10 (the frontend
+    initialized at frame 7); --resume starts after the session's last frame
+    and tracks on as an uninterrupted run does (the CPU's sums are
+    deterministic: to 1e-6)."""
+    import yaml
+    if what == "use_metric":
+        cfg = small_cfg(tmp_path, use_metric=True, metric={
+            "backend": "flax", "weights": str(METRIC_WEIGHTS)})
+        tracker, _, timer = run_vo.run(cfg, str(tmp_path / "run"),
+                                       device="cpu")
+        assert timer.counts["metric"] == 12
+        ds = tracker.video.bufs.disps_sens[:tracker.video.counter]
+        assert tracker.video.counter == 12 and bool((ds > 0).all())
+        return
+    cfg = small_cfg(tmp_path)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(SMALL | {
+        "output": {"save_dir": str(tmp_path / "main")}}))
+    if what.endswith("checkpoint_every"):
+        if what == "main_checkpoint_every":
+            run_vo.main([str(path), "--device", "cpu", "--prefix", "m_",
+                         "--checkpoint-every", "10"])
+            (run_dir,) = (tmp_path / "main").glob("m_*")
+        else:
+            run_dir = tmp_path / "run"
+            run_vo.run(cfg, str(run_dir), device="cpu", checkpoint_every=10)
+        session = run_dir / "session"
+        assert sorted(p.name for p in session.iterdir()) == \
+            sorted(SESSION_FILES)
+        with np.load(session / "video.npz") as z:
+            assert (z["tstamp"][:10] == np.arange(10)).all()
+        with np.load(session / "graph.npz") as z:
+            assert np.abs(z["weight"]).sum() > 0     # the GRU has run
+        return
+    run_vo.run(cfg, str(tmp_path / "first"), device="cpu",
+               max_frames=11, checkpoint_every=10)
+    session = str(tmp_path / "first" / "session")
+    whole, _, _ = run_vo.run(cfg, str(tmp_path / "whole"), device="cpu")
+    if what == "main_resume":
+        run_vo.main([str(path), "--device", "cpu", "--prefix", "r_",
+                     "--resume", session])
+        (run_dir,) = (tmp_path / "main").glob("r_*")
+        kfs = (run_dir / "keyframelist.txt").read_text().split()
+        assert [float(t) for t in kfs] == list(range(12))
+        return
+    seen = []
+    resumed, _, _ = run_vo.run(cfg, str(tmp_path / "resumed"), device="cpu",
+                               resume=session,
+                               on_frame=lambda i, *a: seen.append(i))
+    assert seen == [10, 11]
+    assert resumed.video.tstamps_host == whole.video.tstamps_host
+    n = whole.video.counter
+    np.testing.assert_allclose(resumed.video.bufs.poses[:n].numpy(),
+                               whole.video.bufs.poses[:n].numpy(), atol=1e-6)
+
+
+def test_resume_starts_at_the_keyframe_count(tmp_path):
+    """The JAX package's resume rule, reproduced: the run restarts at frame
+    `len(tstamps_host) + count_save`, the session's keyframe count. Where
+    the motion filter drops frames that is earlier than the frame the
+    session was saved at (here one keyframe by frame 10, so frames 1-9 are
+    tracked again: ROADMAP §C)."""
+    cfg = small_cfg(tmp_path)
+    cfg["frontend"]["filter_thresh"] = 1e9     # no frame after the first
+    run_vo.run(cfg, str(tmp_path / "first"), device="cpu", max_frames=11,
+               checkpoint_every=10)
+    session = str(tmp_path / "first" / "session")
+    from vings_mono_tpu_torch.utils.checkpoint import load_host
+    host = load_host(session)
+    assert host["counter"] + host["count_save"] == 1
+    seen = []
+    run_vo.run(cfg, str(tmp_path / "resumed"), device="cpu", resume=session,
+               on_frame=lambda i, *a: seen.append(i))
+    assert seen == list(range(1, 12))
+
+
+@pytest.mark.parametrize("what", ["mode_unknown", "dataset", "parallel_dp"])
 def test_unported_option_raises(what, tmp_path):
     base = {"dataset": {"module": "synthetic", "n_frames": 2},
             "frontend": {"image_size": [32, 32], "buffer": 12,
                          "ba_window": 8},
             "output": {"save_dir": str(tmp_path)}}
-    run_dir = str(tmp_path / "run")
-    if what.startswith("main_"):
-        import yaml
-        path = tmp_path / "cfg.yaml"
-        path.write_text(yaml.safe_dump(base))
-        extra = ["--resume", str(tmp_path)] if what == "main_resume" \
-            else ["--checkpoint-every", "5"]
-        name = "--" + what[len("main_"):].replace("_", "-")
-        with pytest.raises(NotImplementedError, match=name):
-            run_vo.main([str(path), "--device", "cpu"] + extra)
-        return
     calls = {
-        "mode_unknown": (dict(base, mode="vio_gnss"), {}, "mode: vio_gnss"),
-        "resume": (base, {"resume": str(tmp_path)}, "--resume"),
-        "checkpoint_every": (base, {"checkpoint_every": 5},
-                             "--checkpoint-every"),
-        "dataset": (dict(base, dataset={"module": "kitti_sync"}), {},
+        "mode_unknown": (dict(base, mode="vio_gnss"), "mode: vio_gnss"),
+        "dataset": (dict(base, dataset={"module": "kitti_sync"}),
                     "kitti_sync"),
-        "parallel_dp": (dict(base, parallel={"dp": 2}), {},
-                        "parallel.dp"),
+        "parallel_dp": (dict(base, parallel={"dp": 2}), "parallel.dp"),
     }
-    over, kwargs, match = calls[what]
+    over, match = calls[what]
     with pytest.raises(NotImplementedError, match=match):
-        run_vo.run(load_config(overrides=over), run_dir, device="cpu",
-                   **kwargs)
+        run_vo.run(load_config(overrides=over), str(tmp_path / "run"),
+                   device="cpu")
 
 
 def test_main_runs_the_pipeline_config_end_to_end(tmp_path, capsys):

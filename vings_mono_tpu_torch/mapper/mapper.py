@@ -21,6 +21,7 @@ import torch
 
 from ..utils import ply as ply_io
 from ..utils.device import resolve_device
+from ..utils.mfu import shape_sig
 from .cameras import camera_from_intrinsic
 from .densify import add_frame, draw_densify
 from .refine import apply_pose_bias_to_gaussians, refine_poses
@@ -87,6 +88,7 @@ class GaussianMapper:
         self.stats_every = int(m.get("stats_every", 4))
         self._last_psnr_host = None
         self.H = self.W = None
+        self._mfu_sig = None
         # round-robin binning cache: re-bin only `rebin_rows` cameras per
         # keyframe (the new one + the stalest); cached rows follow the
         # sliding window by global_kf_id. 0 = always full re-bin.
@@ -397,14 +399,17 @@ class GaussianMapper:
                                    None if sky_images is None
                                    else pool2x2(sky_images)))
 
+        targs = (self.state, self.opt, batch, binned, intr4)
+        tkw = dict(height=self.H, width=self.W, weights=ta["loss_weights"],
+                   lrs=lrs, render_kwargs=self.render_kwargs,
+                   sky=self._sky_args(batch, intr4, self.H, self.W,
+                                      self.bin_kwargs, sky_images))
+        # shape-only signature for MFU accounting (utils/mfu.py)
+        self._mfu_sig = (shape_sig(targs), shape_sig(tkw), iters - iters_c)
         _, _, metrics = train_loop(
-            self.state, self.opt, batch, binned, intr4,
-            iters=iters - iters_c, height=self.H, width=self.W,
+            *targs, iters=iters - iters_c,
             kf_schedule=self._kf_schedule(iters - iters_c, batch.n_valid),
-            weights=ta["loss_weights"], lrs=lrs,
-            render_kwargs=self.render_kwargs,
-            sky=self._sky_args(batch, intr4, self.H, self.W,
-                               self.bin_kwargs, sky_images))
+            **tkw)
         self.metrics = metrics
 
         self.time_idx += 1

@@ -5,6 +5,7 @@ dataset -> tracker [-> inertial fusion] -> middleware -> mapper
 
 Usage: python -m vings_mono_tpu_torch.runners.run <config.yaml>
            [--prefix NAME] [--max-frames N] [--device cuda|cpu]
+           [--checkpoint-every N] [--resume SESSION_DIR]
 
 Runs on CUDA unless `--device` (or the config's `device` block) says
 otherwise; without CUDA it raises and does not carry on on the CPU.
@@ -20,12 +21,16 @@ every `looper.every` keyframes after `looper.start_after`, with pose and
 map rectification on a closure, stage `loop`; the accepted pairs become
 global-BA edges), `use_global_ba` (the terminate pass, stage `global_ba`),
 `use_vis` (the rgbdnua panel every keyframe, the map and the follow-cam BEV
-every tenth, stage `vis`), and in the mapper `use_sky`, `use_refine` (the
-refined poses go back into the tracker's window) and
-`training_args.coarse_frac`. `check_ported` raises NotImplementedError
-naming the first option that is not ported yet: `use_metric`,
-`parallel.dp`, `--resume`, `--checkpoint-every` (the dataset loader names
-the image-folder datasets).
+every tenth, stage `vis`), `use_metric` (the metric-depth prior of each
+frame becomes its `depth`, stage `metric`), and in the mapper `use_sky`,
+`use_refine` (the refined poses go back into the tracker's window) and
+`training_args.coarse_frac`. `--checkpoint-every N` saves the session to
+`<save_dir>/session` before every N-th frame (stage `checkpoint`);
+`--resume DIR` loads a session of either package and carries on at the
+frame its keyframe count names. `check_ported` raises NotImplementedError
+for an unknown `mode` and for `parallel.dp`, which has no counterpart on
+one card (the dataset loader names the image-folder datasets, which are
+not ported yet).
 """
 
 from __future__ import annotations
@@ -37,33 +42,26 @@ import time
 
 import numpy as np
 
-UNPORTED_FLAGS = ("use_metric",)
 MODES = ("vo", "vo_nerfslam", "vio")
 
 
-def check_ported(cfg, resume=None, checkpoint_every=None):
-    """Raise NotImplementedError for the first option the port lacks."""
+def check_ported(cfg):
+    """Raise NotImplementedError for an option the port lacks."""
     if cfg.get("mode", "vo") not in MODES:
         raise NotImplementedError(
             f"mode: {cfg.get('mode')} is not ported yet (ported: "
             f"{', '.join(MODES)})")
-    for flag in UNPORTED_FLAGS:
-        if cfg.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet")
     if int((cfg.get("parallel") or {}).get("dp", 1)) > 1:
         raise NotImplementedError("parallel.dp is not ported yet")
-    if resume:
-        raise NotImplementedError("--resume is not ported yet")
-    if checkpoint_every:
-        raise NotImplementedError("--checkpoint-every is not ported yet")
 
 
 def build(cfg, device=None):
-    """(dataset, tracker, mapper, storage, looper, dynamic) for a config;
-    `device` overrides the config's `device` block for tracker and mapper.
-    With `mode: vio` the tracker has its inertial layer attached; storage,
-    looper and dynamic are None unless `use_storage_manager`, `use_loop`
-    and `use_dynamic` are set."""
+    """(dataset, tracker, mapper, storage, looper, dynamic, metric) for a
+    config; `device` overrides the config's `device` block for tracker,
+    mapper and the metric-depth net. With `mode: vio` the tracker has its
+    inertial layer attached; storage, looper, dynamic and metric are None
+    unless `use_storage_manager`, `use_loop`, `use_dynamic` and
+    `use_metric` are set."""
     from ..datasets.base import get_dataset
     from ..mapper.mapper import GaussianMapper
     from ..tracker.tracker import Tracker
@@ -97,7 +95,11 @@ def build(cfg, device=None):
     if cfg.get("use_dynamic"):
         from ..dynamic.dynamic_model import DynamicModel
         dynamic = DynamicModel(cfg, device=mapper.device)
-    return dataset, tracker, mapper, storage, looper, dynamic
+    metric = None
+    if cfg.get("use_metric"):
+        from ..models.metric_depth import MetricDepth
+        metric = MetricDepth(cfg, device=tracker.device)
+    return dataset, tracker, mapper, storage, looper, dynamic, metric
 
 
 def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
@@ -107,25 +109,43 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     final .ply under save_dir. Returns (tracker, mapper, timer).
 
     on_frame(idx, tracker, mapper, viz_out) is called after every frame.
-    sync_timer: end each timed stage with a device synchronize, so the
-    stage times hold the device work (slower: it stops the host from
-    running ahead)."""
+    resume: a session directory (utils/checkpoint.py) to load first; the
+    run then starts at frame `len(tstamps_host) + count_save`, the
+    session's keyframe count (the JAX package's rule: the frame after the
+    session's last where every frame became a keyframe).
+    checkpoint_every: save the session to save_dir/session before every
+    N-th frame (stage `checkpoint`). sync_timer: end each timed stage with
+    a device synchronize, so the stage times hold the device work (slower:
+    it stops the host from running ahead)."""
     from ..middleware import judge_and_package, retrieve_to_tracker
+    from ..utils.checkpoint import load_session, save_session
     from ..utils.profiling import StageTimer
     from ..utils.trajectory import save_trajectory
 
-    check_ported(cfg, resume, checkpoint_every)
-    dataset, tracker, mapper, storage, looper, dynamic = build(cfg,
-                                                               device=device)
+    check_ported(cfg)
+    dataset, tracker, mapper, storage, looper, dynamic, metric = build(
+        cfg, device=device)
     every = int(cfg["storage_manager"]["every"]) if storage else 0
     lcfg = cfg.get("looper") or {}
+    inertial = tracker.frontend.inertial
+    if resume:
+        load_session(resume, tracker, mapper, inertial)
+        start_frame = max(start_frame, len(tracker.video.tstamps_host)
+                          + tracker.video.count_save)
 
     timer = StageTimer(sync_device=tracker.device if sync_timer else None)
     n = len(dataset) if max_frames is None else min(len(dataset),
                                                     max_frames)
     kf_count = 0
     for idx in range(start_frame, n):
+        if checkpoint_every and idx and idx % checkpoint_every == 0:
+            with timer("checkpoint"):
+                save_session(os.path.join(save_dir, "session"), tracker,
+                             mapper, inertial)
         pkt = dataset[idx]
+        if metric is not None:
+            with timer("metric"):
+                pkt["depth"] = metric.predict(pkt["rgb"], pkt["intrinsic"])
         with timer("track"):
             tracker.track(pkt)
         with timer("package"):
@@ -209,11 +229,13 @@ def main(argv=None):
     p.add_argument("--checkpoint-every", type=int, default=None)
     args = p.parse_args(argv)
     cfg = load_config(args.config)
-    check_ported(cfg, args.resume, args.checkpoint_every)
+    check_ported(cfg)
     save_dir = make_run_dir(cfg, args.prefix)
     shutil.copy(args.config, os.path.join(save_dir, "config.yaml"))
     t0 = time.time()
     tracker, mapper, timer = run(cfg, save_dir, args.max_frames,
+                                 resume=args.resume,
+                                 checkpoint_every=args.checkpoint_every,
                                  device=args.device)
     print(f"done in {time.time() - t0:.1f}s -> {save_dir}")
     print(timer.report())

@@ -14,8 +14,9 @@ An inertial layer (tracker/vio.py, `attach_inertial`) hooks in at frame
 arrival (IMU prediction), keyframe removal (interval merge), rollup
 (rekeying) and after the keyframe decision (VI and GNSS initialization);
 both distance prefetches are off while one is attached, since the IMU
-prediction between frames moves the poses they would measure. The live
-monitor is not ported: `frontend.show_plot` raises NotImplementedError.
+prediction between frames moves the poses they would measure. With
+`frontend.show_plot` a `FrontendMonitor` (utils/monitor.py) records every
+keyframe decision and draws its panel at each rollup.
 """
 
 from __future__ import annotations
@@ -96,9 +97,10 @@ class Frontend:
         self._kf_dist_prefetch = None
         self._kf_dist_hits = 0
         self.inertial = None
+        self.monitor = None
         if fe.get("show_plot", False):
-            raise NotImplementedError(
-                "frontend.show_plot (the live monitor) is not ported yet")
+            from ..utils.monitor import FrontendMonitor
+            self.monitor = FrontendMonitor(cfg)
 
     def attach_inertial(self, inertial):
         self.inertial = inertial
@@ -205,6 +207,12 @@ class Frontend:
             # update in the new frame
             if self.inertial.maybe_init_gnss(self.t1):
                 self.graph.update(None, None, iters=2, use_inactive=True)
+
+        if self.monitor is not None:
+            # reads the poses: a host wait, only with show_plot
+            self.monitor.record(self)
+            if self.did_rollup:
+                self.monitor.render()
 
         self._seed_next()
         self._prefetch_proximity()

@@ -38,6 +38,7 @@ from ..ops import corr as corr_ops
 from ..ops import lie
 from ..ops import projective as pops
 from ..ops.upsample import upsample_disp
+from ..utils.mfu import shape_sig
 from .video import DepthVideo, VideoBuffers
 
 
@@ -297,6 +298,7 @@ class CovisibleGraph:
         self._next_update_cov = False
         self._prox_prefetch = None
         self._prox_hits = 0
+        self._mfu_sig = None
 
         h, w = video.ht // 8, video.wd // 8
         self.h, self.w = h, w
@@ -468,16 +470,20 @@ class CovisibleGraph:
         compute_cov = self._next_update_cov
         self._next_update_cov = False
         inertial = self.inertial is not None and self.video.imu_enabled
+        args = (self.update_module, self.video.bufs, self.edges, self.inac,
+                packed)
+        kw = dict(n_act=len(self.ii), n_inac=int(m.sum()), base=base,
+                  t0=t0, ii_max=int(self.ii.max()),
+                  jj_max=int(self.jj.max()),
+                  imu_enabled=self.video.imu_enabled,
+                  visual_only=self.video.visual_only_init, w_ba=self.w_ba,
+                  iters=iters, far_threshold=self.far_threshold,
+                  mask_threshold=self.mask_threshold, bf16=self.bf16_gru)
+        # shape-only signature for MFU accounting (utils/mfu.py)
+        self._mfu_sig = (shape_sig(args), dict(kw, do_ba=True))
+        out = _fused_update(*args, **kw, compute_cov=compute_cov,
+                            do_ba=not inertial)
         bufs = self.video.bufs
-        out = _fused_update(
-            self.update_module, bufs, self.edges, self.inac,
-            packed, n_act=len(self.ii), n_inac=int(m.sum()), base=base,
-            t0=t0, ii_max=int(self.ii.max()), jj_max=int(self.jj.max()),
-            imu_enabled=self.video.imu_enabled,
-            visual_only=self.video.visual_only_init, w_ba=self.w_ba,
-            iters=iters, far_threshold=self.far_threshold,
-            mask_threshold=self.mask_threshold, compute_cov=compute_cov,
-            bf16=self.bf16_gru, do_ba=not inertial)
         if inertial:
             # GRU on the device, pose fusion on the host factor graph
             (tgt, wgt, eta_ba, all_ii, all_jj, all_valid, poses_win,
