@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--keyframes 6] [--iters 100]
-                          [--vo-frames 100] [--vio-frames 100]
+                          [--vo-frames 70] [--vio-frames 100]
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. build the CUDA kernels (csrc/*.cu) and print the build seconds, then
@@ -89,7 +89,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      call); `rectify_poses`, `rectify_gaussians`, `rectify_tracker` with the
      depth write-back and `retrain_gaussians` on phase 12's end state with
      a known endpoint correction, from the same snapshot on both;
- 14. the slice's main path: metric depth, sessions and the evaluation
+ 14. metric depth, sessions and the evaluation
      harness. The self-trained DPT (`MetricDepth`, flax backend) on the
      card against the CPU on three room frames at 240x432; then
      `runners.run.run` on `configs/synthetic/smoke.yaml` with `use_metric`
@@ -101,7 +101,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      the session's size and save ms; both kernels held against their
      plain twins on eval_psnr's render; the same run again (the card's
      spread); and `--resume` from the frame-20 session to frame 30 (load
-     ms, keyframe count, pose gap to the first run).
+     ms, keyframe count, pose gap to the first run);
+ 15. the slice's main path: the image-folder datasets, the remaining
+     runners and the trainer. (a) A `kitti_sync` folder of 60 frames of
+     the synthetic3d room rendered at 370x1226 with KITTI-0028's
+     intrinsics (image_02/data, metadata/camstamp.txt at 10 Hz,
+     metadata/imu.txt from the room's analytic IMU at 100 Hz written
+     `imu_delay` late, c2i.txt, pose/) through `runners.run.run` on
+     configs/kitti/sync/kitti_2011_09_30_drive_0028.yaml as committed
+     (`mode: vio`, storage, vis; only dataset.root and the DroidNet
+     weights set): stage times, frames/s, host ms per `dataset[idx]`
+     (370x1226 -> 240x800), ATE against pose/, launches, and both kernels
+     against their plain twins on the final map under the newest
+     keyframe's camera; (b) `runners.run_tracking.run` on the folder,
+     keyframes and pose gap against (a) as findings; (c)
+     `runners.run_multiprocess.run`: frames/s beside (a), windows mapped
+     and dropped, the tracker against (b), the .ply, the TF32 flags equal
+     before and after; (d) the mobile workers of
+     `run_multiprocess_mobile` on 20 frames from a feeder thread in the
+     server's place, one finite render per mapped window; (e) the DROID
+     trainer: one clip's loss and gradients card against CPU, 20 steps of
+     `runners.train_droid`'s loop from the repository's weights (s/step,
+     peak memory, losses) and the checkpoint loaded back bitwise.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`).
 The second-to-last line is the card's name and power limit, the last line
@@ -520,9 +541,11 @@ VO_CUTS = [
     ("use_storage_manager", "true -> false", "phase 8 runs the storage "
      "manager"),
     ("use_vis", "true -> false", "phase 8 runs the vis outputs"),
-    ("frontend.rollup_at", "65 -> 40", "the run is cut to 100 frames (~50 "
-     "keyframes) to leave the script's time to phase 8; a rollup must "
+    ("frontend.rollup_at", "65 -> 28", "the run is cut to 70 frames (~35 "
+     "keyframes) to leave the script's time to phases 8-15; a rollup must "
      "still fire"),
+    ("frontend.rollup_n", "30 -> 20", "a rollup at 28 keyframes leaves 8 "
+     "in the window"),
     ("dataset", "kitti_sync -> synthetic3d (procedural room, seeded "
      "texture, ground-truth poses)", "no KITTI frames in the repository"),
     ("frontend.weight", "checkpoints/droid.pth -> vings_mono_tpu/weights/"
@@ -764,7 +787,8 @@ def vo_slice(args, tk, rehearsal=None):
         "dataset": {"module": "synthetic3d", "n_frames": n_all,
                     "revs": 0.01 * n_all, "focal": INTRINSIC["fv"],
                     "tex_seed": args.seed},
-        "frontend": {"weight": str(WEIGHTS), "rollup_at": 40},
+        "frontend": {"weight": str(WEIGHTS), "rollup_at": 28,
+                     "rollup_n": 20},
         "training_args": {"iters": args.iters}, "seed": args.seed,
         "output": {"save_dir": str(save_dir)},
         "device": {"tracker": DEVICE, "mapper": DEVICE}})
@@ -2841,7 +2865,7 @@ def pose_gap(a, b, frames):
 
 
 def metric_session_phase(args, tk):
-    """Phase 14, this slice's main path: `runners.run.run` on smoke.yaml
+    """Phase 14: `runners.run.run` on smoke.yaml
     with use_metric (the flax DPT) on synthetic3d, checkpointing every 10
     frames; the evaluation harness and the MFU over it; the kernels on
     eval_psnr's render; a second identical run for the card's spread; the
@@ -3018,6 +3042,414 @@ def metric_session_phase(args, tk):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the image-folder datasets, the threaded runners, the trainer
+# ---------------------------------------------------------------------------
+
+KITTI_FRAMES = 60           # frames of the written kitti_sync folder
+KITTI_DT = 0.1              # KITTI's 10 Hz camera
+MOBILE_FRAMES = 20          # frames fed to the mobile workers
+TRAIN_STEPS = 20            # steps of the trainer's loop
+TRAIN_UNROLL = 8            # train_droid's --num-steps default
+# card vs CPU on one training clip: the loss to 1e-4 relative; each
+# parameter's gradient to 1e-2 of its own largest magnitude (8 unrolled
+# GRU + BA steps sum in other orders on the two devices), and a tensor
+# whose CPU gradient stays below 1e-6 of the largest of all (the biases
+# ahead of an instance norm, whose true gradient is 0) below that bound
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-2
+TRAIN_NOISE = 1e-6
+
+
+def write_kitti_sync(root, n, imu_delay, dt=KITTI_DT):
+    """A kitti_sync folder of the synthetic3d room at KITTI-0028's
+    370x1226 with its intrinsics: image_02/data/*.png, metadata/
+    camstamp.txt at 1/dt Hz, metadata/imu.txt from room_imu at 100 Hz
+    written `imu_delay` late (the loader subtracts it), metadata/c2i.txt
+    (identity) and pose/<t>.txt c2ws. The camera moves at phase 7's
+    speed. Returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vings_mono_tpu_torch.datasets.synthetic3d import (
+        render_room, texture_params, trajectory_c2w)
+    import cv2
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    for d in ("image_02/data", "metadata", "pose"):
+        (root / d).mkdir(parents=True)
+    intr = np.asarray([KITTI["fv"], KITTI["fu"], KITTI["cv"], KITTI["cu"]],
+                      np.float32)
+    revs = VIO_REVS_PER_FRAME * n
+    tex = texture_params(0)
+
+    def one(k):
+        c2w = trajectory_c2w(k, n, revs=revs)
+        rgb, _ = render_room(c2w, intr, KITTI["H"], KITTI["W"], tex=tex)
+        name = f"{k:010d}.png"
+        cv2.imwrite(str(root / "image_02/data" / name),
+                    np.round(rgb[..., ::-1] * 255).astype(np.uint8))
+        np.savetxt(root / "pose" / f"{k * dt:.6f}.txt", c2w)
+        return f"{k * dt:.6f} {name}"
+    with ThreadPoolExecutor(8) as ex:
+        lines = list(ex.map(one, range(n)))
+    (root / "metadata/camstamp.txt").write_text("\n".join(lines) + "\n")
+    imu = room_imu(n, revs, dt)
+    imu[:, 0] += imu_delay
+    np.savetxt(root / "metadata/imu.txt", imu)
+    np.savetxt(root / "metadata/c2i.txt", np.eye(4))
+    return time.perf_counter() - t0
+
+
+class TimedDataset:
+    """A dataset whose `__getitem__` is timed on the host clock."""
+
+    def __init__(self, ds):
+        self.ds = ds
+        self.ms = []
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, idx):
+        t0 = time.perf_counter()
+        pkt = self.ds[idx]
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return pkt
+
+    def __getattr__(self, name):
+        return getattr(self.ds, name)
+
+
+def kitti_cfg(folder, out):
+    """configs/kitti/sync/kitti_2011_09_30_drive_0028.yaml as committed
+    with dataset.root on the folder and the repository's DroidNet
+    weights, written to a temporary YAML and loaded from there."""
+    import tempfile
+    import yaml
+    from vings_mono_tpu_torch.utils.config import load_config
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "kitti_0028.yaml"
+        path.write_text(yaml.safe_dump(load_config(str(CONFIG), overrides={
+            "dataset": {"root": str(folder)},
+            "frontend": {"weight": str(WEIGHTS)},
+            "output": {"save_dir": str(out)},
+            "device": {"tracker": DEVICE, "mapper": DEVICE}})))
+        return load_config(str(path))
+
+
+def agreement(tag, a, b, what):
+    """Keyframe timestamps two trackers share and their largest pose
+    gap, printed as a finding."""
+    pa, pb = poses_by_ts(a), poses_by_ts(b)
+    common = sorted(set(pa) & set(pb))
+    dist, ang = pose_gap(pa, pb, common) if common else (float("nan"),) * 2
+    print(f"{tag} keyframes against {what}: {len(common)} timestamps "
+          f"shared of {len(pa)} and {len(pb)}; largest pose gap over them "
+          f"{dist:.4e} units / {ang:.4e} deg (a finding: the card's "
+          f"index_add_ sums are not deterministic)", flush=True)
+    return len(common)
+
+
+def seen_camera(mapper, cams):
+    """The newest trained keyframe's camera under which the final map has
+    pairs to rasterize: (c2w, intrinsic, label). Prints the cameras
+    passed over (a keyframe whose depths were all gated away seeded
+    nothing, and the map may lie behind or beside it)."""
+    import torch
+    from vings_mono_tpu_torch.mapper.cameras import camera_from_intrinsic
+    from vings_mono_tpu_torch.ops.rasterizer import bin_for_camera
+    s = mapper.state
+    alive = s.xyz[s.alive]
+    for back, (idx, c2w, intr, share) in enumerate(reversed(cams)):
+        w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
+                              device=s.xyz.device)
+        cam = camera_from_intrinsic(w2c, intr)
+        with torch.no_grad():
+            n = int(bin_for_camera(s.xyz, s.log_scale, s.quat,
+                                   s.logit_opacity, s.rgb, cam,
+                                   alive=s.alive,
+                                   **mapper.bin_kwargs).n_pairs)
+            dist = (alive - torch.as_tensor(c2w[:3, 3], dtype=torch.float32,
+                                            device=alive.device)).norm(dim=-1)
+        print(f"phase 15a camera of the keyframe mapped at frame {idx} "
+              f"({back} before the newest): {n} pairs; its depths kept at "
+              f"{share:.4f} of its pixels; {len(alive)} live surfels, "
+              f"distance to its centre median {float(dist.median()):.3f}, "
+              f"min {float(dist.min()):.3f}", flush=True)
+        if n > 0:
+            return c2w, intr, (f"the final map under the camera of the "
+                               f"keyframe mapped at frame {idx}, {back} "
+                               f"before the newest")
+    fail("phase 15a: no trained keyframe's camera sees the final map")
+
+
+def kitti_folder_phase(args, tk):
+    """Phase 15a-d, this slice's main path: a written kitti_sync folder
+    through runners.run, run_tracking, run_multiprocess and the mobile
+    workers. Returns the launch counts of 15a, 15c and 15d and the
+    kernels' largest errors on 15a's final map."""
+    import queue
+    import threading
+    import torch
+    import cv2
+    from vings_mono_tpu_torch.datasets import base as ds_base
+    from vings_mono_tpu_torch.runners import evaluate
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.runners import (run_multiprocess,
+                                              run_multiprocess_mobile,
+                                              run_tracking)
+    smi = nvidia_smi()
+    root = OUT / "kitti"
+    folder = root / "folder"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = kitti_cfg(folder, root)
+    delay = float(cfg["dataset"]["imu_delay"])
+    write_s = write_kitti_sync(folder, KITTI_FRAMES, delay)
+    h, w = (int(x) for x in cfg["frontend"]["image_size"])
+    print(f"phase 15 folder: {KITTI_FRAMES} frames of the synthetic3d room "
+          f"at {KITTI['H']}x{KITTI['W']} (KITTI-0028's intrinsics) in the "
+          f"kitti_sync layout, {KITTI_DT} s apart, a {IMU_HZ:.0f} Hz IMU "
+          f"written {delay} s late, written in {write_s:.1f} s; config "
+          f"{CONFIG.relative_to(ROOT)} as committed (mode {cfg['mode']}, "
+          f"use_storage_manager {cfg['use_storage_manager']}, use_vis "
+          f"{cfg['use_vis']}, {h}x{w}) with dataset.root on the folder and "
+          f"frontend.weight {WEIGHTS.relative_to(ROOT)}", flush=True)
+    check(cfg["mode"] == "vio" and cfg["use_storage_manager"]
+          and cfg["use_vis"] and (h, w) == (240, 800),
+          "phase 15 is not KITTI-0028 as committed")
+
+    def launches():
+        return {"rasterize_forward": tk.rasterize_forward.launches,
+                "rasterize_backward": tk.rasterize_backward.launches}
+
+    def reset():
+        tk.rasterize_forward.launches = 0
+        tk.rasterize_backward.launches = 0
+
+    # ---- 15a: runners.run on the folder
+    timed, last = [], {}
+    get_dataset = ds_base.get_dataset
+
+    def timed_get(c):
+        timed.append(TimedDataset(get_dataset(c)))
+        return timed[-1]
+
+    def on_frame(idx, tracker, mapper, viz_out):
+        # the newest keyframe's camera of every window the mapper trained
+        # on, with the share of its pixels that kept a depth
+        if viz_out is not None and mapper.time_idx > len(cams):
+            k = int(viz_out["n_valid"]) - 1
+            cams.append((idx, np.asarray(viz_out["poses"][k].cpu()),
+                         dict(viz_out["intrinsic"]),
+                         float((viz_out["depths"][k] > 0).float().mean())))
+    cams = []
+    reset()
+    t0 = time.perf_counter()
+    with replaced(ds_base, "get_dataset", timed_get):
+        tracker_a, mapper, timer = run_mod.run(
+            cfg, str(root / "run"), sync_timer=True, on_frame=on_frame)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launch_a = launches()
+    print(timer.report().replace("\n", "\nphase 15a ").replace(
+        "stage times", "phase 15a stage times"), flush=True)
+    load_ms = timed[0].ms
+    dataset = get_dataset(cfg)
+    ate = evaluate.eval_trajectory(str(root / "run"), dataset)
+    v = tracker_a.video
+    n_kf = v.counter + v.count_save
+    print(f"phase 15a run.py [{smi}]: {KITTI_FRAMES} frames in {wall_a:.1f} "
+          f"s ({KITTI_FRAMES / wall_a:.3f} frames/s), {n_kf} keyframes, the "
+          f"mapper trained on {mapper.time_idx}; dataset[idx] host "
+          f"{np.mean(load_ms):.2f} ms mean, {np.median(load_ms):.2f} ms "
+          f"median, {max(load_ms):.2f} ms max over {len(load_ms)} frames "
+          f"({KITTI['H']}x{KITTI['W']} png -> {h}x{w}); ATE rmse "
+          f"{ate if ate is None else round(ate, 4)} (eval_trajectory, "
+          f"scale-aligned, against pose/); launches {launch_a}", flush=True)
+    check(len(load_ms) == KITTI_FRAMES, "phase 15a: not every frame loaded")
+    check(ate is not None and np.isfinite(ate), "phase 15a: no ATE")
+    check(mapper.time_idx > 0, "phase 15a: nothing was mapped")
+    for name, cnt in launch_a.items():
+        check(cnt > 0, f"phase 15a: {name} never launched")
+    check(bool(torch.isfinite(v.bufs.poses[:v.counter]).all()),
+          "phase 15a poses are not finite")
+    check((root / "run" / "ply" / "final_2dgs.ply").is_file(),
+          "phase 15a: no .ply")
+    c2w, intr, label = seen_camera(mapper, cams)
+    errs = kernels_on("phase 15a", [(label, mapper.state, c2w, intr)],
+                      dict(mapper.bin_kwargs), args.seed + 80)
+    del mapper
+
+    # ---- 15b: run_tracking on the same folder
+    t0 = time.perf_counter()
+    tracker_b = run_tracking.run(cfg, str(root / "tracking"))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    print(f"phase 15b run_tracking [{smi}]: {KITTI_FRAMES} frames in "
+          f"{wall_b:.1f} s ({KITTI_FRAMES / wall_b:.3f} frames/s)",
+          flush=True)
+    agreement("phase 15b", tracker_b, tracker_a, "15a's run.py")
+    check(len(list((root / "tracking" / "droid_c2w").glob("*.txt"))) > 0,
+          "phase 15b: no trajectory")
+    del tracker_a
+
+    # ---- 15c: run_multiprocess on the same folder
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    reset()
+    t0 = time.perf_counter()
+    tracker_c, mapper_c, stats = run_multiprocess.run(
+        cfg, str(root / "multiprocess"))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launch_c = launches()
+    after = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    ply = (root / "multiprocess" / "ply" / "final_2dgs.ply").is_file()
+    print(f"phase 15c run_multiprocess [{smi}]: {KITTI_FRAMES} frames in "
+          f"{wall_c:.1f} s ({KITTI_FRAMES / wall_c:.3f} frames/s; run.py "
+          f"{KITTI_FRAMES / wall_a:.3f}); windows {stats['windows']} "
+          f"packaged, {stats['mapped']} mapped ({mapper_c.time_idx} with a "
+          f"new keyframe to train on), {stats['dropped']} dropped by the "
+          f"backpressure; .ply written: {ply}; TF32 flags (matmul, "
+          f"cudnn) {flags} before, {after} after; launches {launch_c}",
+          flush=True)
+    agreement("phase 15c", tracker_c, tracker_b, "15b's run_tracking")
+    check(ply, "phase 15c: no .ply")
+    check(after == flags, "phase 15c changed the TF32 flags")
+    check(stats["mapped"] >= mapper_c.time_idx > 0
+          and stats["mapped"] + stats["dropped"] == stats["windows"],
+          f"phase 15c: windows {stats}, trained on {mapper_c.time_idx}")
+    for name, cnt in launch_c.items():
+        check(cnt > 0, f"phase 15c: {name} never launched")
+    del tracker_b, tracker_c, mapper_c
+
+    # ---- 15d: the mobile workers, a feeder thread in the server's place
+    s2t, m2s = queue.Queue(), queue.Queue()
+    meta = np.loadtxt(folder / "metadata/camstamp.txt", dtype=str)
+
+    def feeder():
+        for t, name in meta[:MOBILE_FRAMES]:
+            bgr = cv2.imread(str(folder / "image_02/data" / name))
+            s2t.put({"timestamp": float(t),
+                     "rgb": bgr[..., ::-1].astype(np.float32) / 255.0})
+        s2t.put(None)
+    reset()
+    t0 = time.perf_counter()
+    workers, results, mstats = run_multiprocess_mobile.start_workers(
+        cfg, s2t, m2s)
+    feed = threading.Thread(target=feeder, daemon=True)
+    feed.start()
+    workers.join()
+    feed.join()
+    wall_d = time.perf_counter() - t0
+    launch_d = launches()
+    renders = []
+    while not m2s.empty():
+        renders.append(m2s.get_nowait())
+    ok = [r.shape == (h, w, 3) and bool(np.isfinite(r).all())
+          for r in renders]
+    print(f"phase 15d mobile workers [{smi}]: {mstats['frames']} frames "
+          f"in {wall_d:.1f} s, windows {mstats['windows']} packaged, "
+          f"{mstats['mapped']} mapped, {mstats['dropped']} dropped; "
+          f"{len(renders)} renders, {sum(ok)} finite ({h}, {w}, 3); "
+          f"launches {launch_d}", flush=True)
+    check(mstats["frames"] == MOBILE_FRAMES, "phase 15d: frames lost")
+    check(len(renders) == mstats["mapped"] >= 1 and all(ok),
+          "phase 15d: not one finite render per mapped window")
+    del results
+    return {"a": launch_a, "c": launch_c, "d": launch_d}, errs
+
+
+def train_phase(args):
+    """Phase 15e: the DROID trainer. One clip's loss and gradients, card
+    against CPU; TRAIN_STEPS steps of train_droid's loop from the
+    repository's weights at its shapes; the checkpoint round trip."""
+    import torch
+    from vings_mono_tpu_torch.models import droid_trainer as tt
+    from vings_mono_tpu_torch.models.droid_net import load_droid_weights
+    from vings_mono_tpu_torch.runners import train_droid
+    from vings_mono_tpu_torch.utils.device import true_f32
+    smi = nvidia_smi()
+    clip = train_droid.random_clip(np.random.default_rng(args.seed + 70))
+    got, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        model = train_droid.build_model(str(WEIGHTS), dev)
+        batch = train_droid.to_batch(clip, dev)
+        t0 = time.perf_counter()
+        with true_f32():
+            loss = tt.droid_training_loss(model, batch,
+                                          num_steps=TRAIN_UNROLL)
+            loss.backward()
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        got[dev] = (float(loss.detach()),
+                    {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).cpu()
+                     for n, p in model.named_parameters()})
+    (lc, gc), (lh, gh) = got[DEVICE], got["cpu"]
+    gmax = max(float(g.abs().max()) for g in gh.values())
+    worst, n_held = 0.0, 0
+    for n, g in gh.items():
+        scale = float(g.abs().max())
+        if scale < TRAIN_NOISE * gmax:
+            check(float(gc[n].abs().max()) < TRAIN_NOISE * gmax,
+                  f"phase 15e: {n}'s gradient is not noise on the card")
+            continue
+        n_held += 1
+        worst = max(worst, float((gc[n] - g).abs().max()) / scale)
+    loss_rel = abs(lc - lh) / abs(lh)
+    print(f"phase 15e trainer card vs CPU [{smi}] on one clip (P "
+          f"{train_droid.P}, {train_droid.H}x{train_droid.W}, "
+          f"{TRAIN_UNROLL} unrolled steps, true f32): loss {lc:.6f} vs "
+          f"{lh:.6f} (relative {loss_rel:.3e}, tolerance "
+          f"{TRAIN_LOSS_REL}); gradients of {n_held} tensors within "
+          f"{worst:.3e} of their largest magnitude (tolerance "
+          f"{TRAIN_GRAD_REL}); forward + backward {secs[DEVICE]:.2f} s on "
+          f"the card (first call), {secs['cpu']:.2f} s on the CPU",
+          flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL,
+          "phase 15e: the trainer on the card left the CPU")
+
+    out = OUT / "train" / "droid_trained.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    stamps, applied = [], []
+
+    def on_step(it, loss, ok):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        applied.append(ok)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, losses = train_droid.train(
+        TRAIN_STEPS, str(out), num_steps=TRAIN_UNROLL, ckpt_every=
+        TRAIN_STEPS, resume=str(WEIGHTS), device=DEVICE,
+        seed=args.seed + 71, log_every=10, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps_s = np.diff([t0] + stamps)
+    print(f"phase 15e train_droid [{smi}]: {TRAIN_STEPS} steps (P "
+          f"{train_droid.P}, {train_droid.H}x{train_droid.W}, num_steps "
+          f"{TRAIN_UNROLL}) from {WEIGHTS.relative_to(ROOT)}: first step "
+          f"{steps_s[0]:.2f} s, then {np.mean(steps_s[1:]):.3f} s/step "
+          f"(median {np.median(steps_s[1:]):.3f}), peak memory {peak:.2f} "
+          f"GB, steps applied {sum(applied)}/{TRAIN_STEPS}; losses "
+          f"{['%.4f' % x for x in losses]}", flush=True)
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          "phase 15e: a training loss is not finite")
+    back = load_droid_weights(str(out))
+    same = all(torch.equal(p.cpu(), back[n])
+               for n, p in model.state_dict().items())
+    start = load_droid_weights(str(WEIGHTS))
+    moved = max(float((p.cpu() - start[n]).abs().max())
+                for n, p in model.state_dict().items())
+    print(f"phase 15e checkpoint {out.name}: "
+          f"{out.stat().st_size / 1e6:.1f} MB, loaded back "
+          f"{'bitwise equal' if same else 'NOT equal'}; the parameters "
+          f"moved up to {moved:.3e} from the start", flush=True)
+    check(same, "phase 15e: the checkpoint did not load back bitwise")
+    check(moved > 0.0, "phase 15e: the training moved nothing")
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -3035,7 +3467,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--keyframes", type=int, default=6)
     p.add_argument("--iters", type=int, default=100)
-    p.add_argument("--vo-frames", type=int, default=100,
+    p.add_argument("--vo-frames", type=int, default=70,
                    help="camera frames of phase 7")
     p.add_argument("--vio-frames", type=int, default=100,
                    help="camera frames of phase 8")
@@ -3229,20 +3661,28 @@ def main(argv=None):
     # phase 12's loop renders and phase 13's retrain
     all_errs = [max(x, y) for x, y in zip(all_errs, retrain_errs)]
     # ---- 14. metric depth, sessions, the evaluation harness: the main path
-    main_launches, main_errs = metric_session_phase(args, tk)
+    metric_launches, metric_errs = metric_session_phase(args, tk)
+    # ---- 15. the kitti_sync folder through the runners: the main path;
+    # then the trainer
+    folder_launches, main_errs = kitti_folder_phase(args, tk)
+    train_phase(args)
     kernels = []
-    for name, line, err, err_rel, err_smoke, err_vio, err_800 in (
+    for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
+            err_800 in (
             ("rasterize_forward", 263, main_errs[0], main_errs[2],
-             all_errs[0], smoke_errs[0], fwd_err),
+             metric_errs[0], all_errs[0], smoke_errs[0], fwd_err),
             ("rasterize_backward", 423, main_errs[1], main_errs[3],
-             all_errs[1], smoke_errs[1], bwd_err["bf16"])):
+             metric_errs[1], all_errs[1], smoke_errs[1], bwd_err["bf16"])):
         key = "fwd" if name.endswith("forward") else "bwd"
         bnd = fwd_bound if key == "fwd" else bwd_bound
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vings_mono_tpu_torch/csrc/rasterizer.cu",
             "replaces": f"vings_mono_tpu/ops/rasterizer/tile_kernel.py:{line}",
-            "launches": main_launches[name],
+            "launches": folder_launches["a"][name],
+            "launches_multiprocess": folder_launches["c"][name],
+            "launches_mobile": folder_launches["d"][name],
+            "launches_metric_session": metric_launches[name],
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -3252,13 +3692,14 @@ def main(argv=None):
             # the backward's rows reach ~1e9 at edge-on pairs (1/den), so
             # its absolute error is read against the row maximum
             "max_abs_err": err, "max_err_over_scale": err_rel,
+            "max_abs_err_metric_session": err_metric,
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -148,3 +148,37 @@ def test_true_f32_restores_the_flags():
         with true_f32():
             raise ValueError
     assert torch.backends.cudnn.allow_tf32
+
+
+def test_overlapping_blocks_in_two_threads_restore_the_flags():
+    """The threaded runners' tracker and mapper threads may both be inside
+    a true_f32 block: thread a enters, b enters, a leaves while b is still
+    inside, then b leaves. The flags stay off until the last block ends
+    and then return to what they were (a save and restore per block would
+    turn TF32 back on under b and leave it off for good after)."""
+    import threading
+    steps = [threading.Event() for _ in range(3)]
+    seen = {}
+
+    def a():
+        with true_f32():
+            steps[0].set()
+            steps[1].wait(10)
+        steps[2].set()
+
+    def b():
+        steps[0].wait(10)
+        with true_f32():
+            steps[1].set()
+            steps[2].wait(10)
+            seen["b_after_a_left"] = (torch.backends.cudnn.allow_tf32,
+                                      torch.backends.cuda.matmul.allow_tf32)
+    threads = [threading.Thread(target=f, daemon=True) for f in (a, b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(20)
+        assert not t.is_alive()
+    assert seen["b_after_a_left"] == (False, False)
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert torch.backends.cuda.matmul.allow_tf32 is False

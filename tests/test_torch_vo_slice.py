@@ -245,14 +245,18 @@ def test_unported_option_raises(what, tmp_path):
             "frontend": {"image_size": [32, 32], "buffer": 12,
                          "ba_window": 8},
             "output": {"save_dir": str(tmp_path)}}
+    # every dataset module of the JAX package is ported, so the dataset
+    # case names a module neither package has
     calls = {
-        "mode_unknown": (dict(base, mode="vio_gnss"), "mode: vio_gnss"),
-        "dataset": (dict(base, dataset={"module": "kitti_sync"}),
-                    "kitti_sync"),
-        "parallel_dp": (dict(base, parallel={"dp": 2}), "parallel.dp"),
+        "mode_unknown": (dict(base, mode="vio_gnss"), NotImplementedError,
+                         "mode: vio_gnss"),
+        "dataset": (dict(base, dataset={"module": "no_such_dataset"}),
+                    ModuleNotFoundError, "no_such_dataset"),
+        "parallel_dp": (dict(base, parallel={"dp": 2}), NotImplementedError,
+                        "parallel.dp"),
     }
-    over, match = calls[what]
-    with pytest.raises(NotImplementedError, match=match):
+    over, exc, match = calls[what]
+    with pytest.raises(exc, match=match):
         run_vo.run(load_config(overrides=over), str(tmp_path / "run"),
                    device="cpu")
 

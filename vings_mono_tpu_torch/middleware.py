@@ -211,6 +211,16 @@ def judge_and_package(tracker, cfg=None):
     return _package(tracker, cfg, valid_localkf)
 
 
+def to_host(viz_out):
+    """A copy of a viz_out dict with every tensor copied to a numpy array on
+    the host: what crosses a thread's queue, so that the tracker may go on
+    writing its buffers while the mapper reads the window (the mapper
+    uploads it again)."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            if isinstance(v, torch.Tensor) else v
+            for k, v in viz_out.items()}
+
+
 @torch.no_grad()
 def retrieve_to_tracker(viz_out, new_poses, tracker):
     """Write mapper-refined c2w poses back into the tracker window."""

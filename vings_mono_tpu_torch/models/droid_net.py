@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .flax_weights import state_dict_from_flax
+from .flax_weights import flax_from_state_dict, state_dict_from_flax
 
 DIM = 32
 
@@ -286,3 +286,11 @@ def load_droid_weights(path):
     if isinstance(sd, dict) and "model" in sd:
         sd = sd["model"]
     return convert_droid_checkpoint({k: v.numpy() for k, v in sd.items()})
+
+
+def save_droid_weights(path, model):
+    """Write a DroidNet's parameters as the flat flax `.npz` that
+    `load_droid_weights` here and the JAX package's `load_flax_weights`
+    read. Stored in f32, so a load gives back the same bits (the
+    repository's self-trained file stores f16)."""
+    np.savez_compressed(path, **flax_from_state_dict(model.state_dict()))

@@ -51,6 +51,22 @@ def state_dict_from_flax(tree, renames=None) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def flax_from_state_dict(sd) -> Dict[str, np.ndarray]:
+    """The inverse of `state_dict_from_flax` for conv and dense layers: a
+    torch state_dict -> a flat dict keyed `params/<module>/.../<leaf>` of
+    f32 numpy arrays, `weight` as flax's `kernel` (OIHW to HWIO, (out, in)
+    to (in, out))."""
+    flat = {}
+    for name, t in sd.items():
+        path = name.split(".")
+        v = t.detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "weight":
+            v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+            path[-1] = "kernel"
+        flat["/".join(["params"] + path)] = np.ascontiguousarray(v)
+    return flat
+
+
 def load_pickled_params(path):
     """The pickled `params` tree of a JAX package `.npz` and its `arch`
     entry ({} when absent), as numpy arrays."""

@@ -29,8 +29,7 @@ frame becomes its `depth`, stage `metric`), and in the mapper `use_sky`,
 `--resume DIR` loads a session of either package and carries on at the
 frame its keyframe count names. `check_ported` raises NotImplementedError
 for an unknown `mode` and for `parallel.dp`, which has no counterpart on
-one card (the dataset loader names the image-folder datasets, which are
-not ported yet).
+one card.
 """
 
 from __future__ import annotations
@@ -55,25 +54,17 @@ def check_ported(cfg):
         raise NotImplementedError("parallel.dp is not ported yet")
 
 
-def build(cfg, device=None):
-    """(dataset, tracker, mapper, storage, looper, dynamic, metric) for a
-    config; `device` overrides the config's `device` block for tracker,
-    mapper and the metric-depth net. With `mode: vio` the tracker has its
-    inertial layer attached; storage, looper, dynamic and metric are None
-    unless `use_storage_manager`, `use_loop`, `use_dynamic` and
-    `use_metric` are set."""
-    from ..datasets.base import get_dataset
-    from ..mapper.mapper import GaussianMapper
+def build_tracker(cfg, dataset, device=None):
+    """The tracker for a config and its dataset, with `frontend.c2i` from
+    the dataset's `c2i`; with `mode: vio` its inertial layer is attached
+    and reads the dataset's `preload_imu()` (and `preload_gnss()` /
+    `preload_odo()` where the dataset has them)."""
     from ..tracker.tracker import Tracker
-
-    check_ported(cfg)
-    dataset = get_dataset(cfg)
     H, W = (int(cfg["frontend"]["image_size"][0]),
             int(cfg["frontend"]["image_size"][1]))
     cfg["frontend"]["c2i"] = getattr(dataset, "c2i", np.eye(4))
-    weights = cfg["frontend"].get("weight")
-    tracker = Tracker(cfg, H, W, weights_path=weights, device=device)
-    mapper = GaussianMapper(cfg, device=device)
+    tracker = Tracker(cfg, H, W, weights_path=cfg["frontend"].get("weight"),
+                      device=device)
     if cfg.get("mode") == "vio":
         from ..tracker.vio import InertialFusion
         # optional GNSS / wheel-odometry streams [(M,4) t,xyz] when the
@@ -84,6 +75,22 @@ def build(cfg, device=None):
             tracker.video, cfg, dataset.preload_imu(),
             np.asarray(cfg["frontend"]["c2i"]), all_gnss=gnss,
             all_odo=odo))
+    return tracker
+
+
+def build(cfg, device=None):
+    """(dataset, tracker, mapper, storage, looper, dynamic, metric) for a
+    config; `device` overrides the config's `device` block for tracker,
+    mapper and the metric-depth net. Storage, looper, dynamic and metric
+    are None unless `use_storage_manager`, `use_loop`, `use_dynamic` and
+    `use_metric` are set."""
+    from ..datasets.base import get_dataset
+    from ..mapper.mapper import GaussianMapper
+
+    check_ported(cfg)
+    dataset = get_dataset(cfg)
+    tracker = build_tracker(cfg, dataset, device)
+    mapper = GaussianMapper(cfg, device=device)
     storage = None
     if cfg.get("use_storage_manager"):
         from ..storage.manager import StorageManager
