@@ -122,7 +122,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      server's place, one finite render per mapped window; (e) the DROID
      trainer: one clip's loss and gradients card against CPU, 20 steps of
      `runners.train_droid`'s loop from the repository's weights (s/step,
-     peak memory, losses) and the checkpoint loaded back bitwise.
+     peak memory, losses) and the checkpoint loaded back bitwise;
+ 16. data parallelism over the keyframe window, dp = 2 with both ranks on
+     cuda:0 over Gloo (and over NCCL on cuda:0 + cuda:1 where the machine
+     has two cards; else one line says that NCCL did not run): (a)
+     `parallel.mesh.sharded_tile_grads` on tests/test_parallel.py's scene
+     scaled to 240x800 (K = 8) against dp = 1 on the card and against the
+     CPU plain path, both kernels against their twins on rank 1's inputs;
+     (b) phase 4's replay through GaussianMapper with `parallel`, the
+     ranks' state digests compared after every call: ms per keyframe and
+     the collectives' host ms per iteration beside phase 4's, PSNR, peak
+     memory and launches per rank; (c) smoke.yaml through
+     `runners.run.run` with the same block: frames/s, ATE, PSNR beside
+     phase 12's, and no child process left when run returns.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`).
 The second-to-last line is the card's name and power limit, the last line
@@ -2507,7 +2519,25 @@ def smoke_phase(args, tk):
               f"kernels on a retrain window)", flush=True)
     errs = kernels_on("phase 12", blocks, dict(mapper.bin_kwargs),
                       args.seed + 30)
-    return launches, errs, (tracker, mapper, cfg)
+    stats = run_quality("phase 12", cfg, save_dir, tracker, mapper, run_s)
+    return launches, errs, (tracker, mapper, cfg), stats
+
+
+def run_quality(tag, cfg, save_dir, tracker, mapper, run_s):
+    """frames/s, ATE (eval_trajectory, scale-aligned, against the
+    dataset's ground truth) and PSNR (eval_psnr) of a finished run."""
+    from vings_mono_tpu_torch.datasets.base import get_dataset
+    from vings_mono_tpu_torch.runners import evaluate
+    n = int(cfg["dataset"]["n_frames"])
+    stats = {"fps": n / run_s,
+             "ate": evaluate.eval_trajectory(str(save_dir),
+                                             get_dataset(cfg)),
+             "psnr": evaluate.eval_psnr(mapper, tracker),
+             "poses": poses_by_ts(tracker)}
+    print(f"{tag} quality: {stats['fps']:.3f} frames/s, ATE {stats['ate']} "
+          f"(eval_trajectory; None: the dataset has no ground truth), PSNR "
+          f"{stats['psnr']} dB (eval_psnr)", flush=True)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -3450,6 +3480,306 @@ def train_phase(args):
     check(moved > 0.0, "phase 15e: the training moved nothing")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism over the keyframe window (parallel: {dp: N})
+# ---------------------------------------------------------------------------
+
+DP_GLOO = {"dp": 2, "backend": "gloo", "devices": ["cuda:0", "cuda:0"],
+           "verify": True}
+DP_NCCL = {"dp": 2, "verify": True}   # cuda:0, cuda:1 over NCCL
+DP_K = 8                    # tests/test_parallel.py's keyframes
+DP_SURFELS = 37500          # its 200 surfels at 32x32, scaled to 240x800
+DP_P_CAP = 1 << 20          # holds the scene's pairs (checked)
+DP_CHUNK = 128
+DP_GRAD_RTOL, DP_GRAD_ATOL = 2e-4, 1e-6   # dp = 2 against dp = 1
+DP_LOSS_REL = 1e-5
+# card against the CPU plain path, of each tensor's largest: the kernel's
+# bf16 per-pair gradients against the twin's, phase 3's bf16 tolerance
+DP_CPU_GRAD = BWD_TOL["bf16"]
+
+
+def child_pids():
+    """(pid, command line) of this process's children (Linux /proc)."""
+    import os
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != os.getpid():
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            continue
+        out.append((int(d), cmd.strip()))
+    return out
+
+
+def check_no_children(tag, group):
+    """The group's followers have exited and no child process is left but
+    multiprocessing's resource tracker (one per interpreter, started by the
+    first multiprocessing queue and ended with the interpreter)."""
+    import multiprocessing as mp
+    kids = [c for c in child_pids() if "resource_tracker" not in c[1]]
+    check(group.closed and not group.alive_followers()
+          and not mp.active_children() and not kids,
+          f"{tag}: children left: {kids}, followers alive "
+          f"{group.alive_followers()}")
+    print(f"{tag}: the dp group is closed, its followers exited, no child "
+          f"process left ({len(child_pids()) - len(kids)} resource "
+          f"tracker)", flush=True)
+
+
+def dp_scene(device, seed=3):
+    """tests/test_parallel.py's scene scaled to 240x800: surfels at depth
+    2-6 spread over the view, log scale -1.5, opacity logit 1, random
+    colours; k random images and depths, all cameras at the origin; focal
+    30 x 240 / 32."""
+    import torch
+    from vings_mono_tpu_torch.mapper.state import adam_init, empty_state
+    k, n = DP_K, DP_SURFELS
+    rng = np.random.default_rng(seed)
+    st = empty_state(1 << 16, device)
+    z = rng.uniform(2.0, 6.0, n)
+    xyz = np.stack([(rng.uniform(0, 1, n) - 0.5) * z * W / H,
+                    (rng.uniform(0, 1, n) - 0.5) * z, z], -1)
+    st.xyz[:n] = torch.as_tensor(xyz, dtype=torch.float32)
+    st.rgb[:n] = torch.as_tensor(rng.uniform(0, 1, (n, 3)),
+                                 dtype=torch.float32)
+    st.log_scale[:n] = -1.5
+    st.logit_opacity[:n] = 1.0
+    st.alive[:n] = True
+    f32 = dict(dtype=torch.float32, device=device)
+    batch = [torch.as_tensor(rng.uniform(0, 1, (k, 3, H, W)), **f32),
+             torch.as_tensor(rng.uniform(2, 6, (k, 1, H, W)), **f32),
+             torch.full((k, 1, H, W), 0.01, **f32),
+             torch.eye(4, **f32).repeat(k, 1, 1)]
+    f = 30.0 * H / 32
+    return st, adam_init(st), batch, (f, f, W / 2, H / 2)
+
+
+def grads_agree(tag, a, b, rtol, atol_of_max=None, atol=0.0):
+    """Largest |a - b| beyond rtol |b| over each gradient tensor, checked
+    against atol (or atol_of_max of the tensor's largest |b|)."""
+    worst = 0.0
+    for k in b:
+        tol = atol if atol_of_max is None else \
+            atol_of_max * float(b[k].abs().max())
+        e = float(((a[k].cpu() - b[k].cpu()).abs()
+                   - rtol * b[k].cpu().abs()).max())
+        check(e <= tol, f"{tag} gradient {k}: {e} past {tol}")
+        worst = max(worst, e / max(tol, 1e-30))
+    return worst
+
+
+def dp_grads_phase(args, tk, group, label):
+    """16a: sharded_tile_grads through `group` against dp = 1 on the card
+    (the same kernels and sums, split over two ranks) and against the CPU
+    plain path on one keyframe per rank; both kernels against their plain
+    twins on one rank's inputs."""
+    import torch
+    from vings_mono_tpu_torch.parallel import mesh
+    st, opt, batch, intr4 = dp_scene(DEVICE)
+    kw = dict(height=H, width=W, p_cap=DP_P_CAP, chunk=DP_CHUNK)
+    mesh.sharded_tile_grads(group, st, opt, *batch, intr4, **kw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g2, v2, l2 = mesh.sharded_tile_grads(group, st, opt, *batch, intr4, **kw)
+    torch.cuda.synchronize()
+    dp2_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g1, v1, l1 = mesh._local_tile_grads(st.params(), st.alive, *batch,
+                                        intr4, H, W, DP_P_CAP, DP_CHUNK)
+    torch.cuda.synchronize()
+    dp1_ms = (time.perf_counter() - t0) * 1e3
+    l1, l2 = float(l1), float(l2)
+    check(abs(l2 - l1) <= DP_LOSS_REL * abs(l1),
+          f"16a {label}: loss {l2} at dp 2, {l1} at dp 1")
+    check(torch.equal(v2, v1), f"16a {label}: visibility differs")
+    w1 = grads_agree(f"16a {label} dp 2 vs dp 1", g2, g1, DP_GRAD_RTOL,
+                     atol=DP_GRAD_ATOL)
+    print(f"phase 16a sharded_tile_grads [{label}] on tests/test_parallel."
+          f"py's scene at {H}x{W} ({DP_SURFELS} surfels, K = {DP_K}, p_cap "
+          f"{DP_P_CAP}): loss {l2:.7f} (dp 1 {l1:.7f}), {int(v2.sum())} "
+          f"visible; gradients dp 2 vs dp 1 within {w1:.3e} of rtol "
+          f"{DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}; {dp2_ms:.1f} ms at dp 2 "
+          f"({group.backend}, rank 0 on {group.device}), {dp1_ms:.1f} ms at "
+          f"dp 1", flush=True)
+    # the CPU plain path on one keyframe per rank
+    sub = [x[:2] for x in batch]
+    gs, vs, ls = mesh.sharded_tile_grads(group, st, opt, *sub, intr4, **kw)
+    cpu_st = dataclasses.replace(st, **{
+        f: getattr(st, f).cpu() for f in ("xyz", "rgb", "log_scale", "quat",
+                                          "logit_opacity", "alive")})
+    t0 = time.perf_counter()
+    gc, vc, lc = mesh._local_tile_grads(
+        cpu_st.params(), cpu_st.alive, *[x.cpu() for x in sub], intr4, H, W,
+        DP_P_CAP, DP_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    check(abs(float(ls) - float(lc)) <= DP_LOSS_REL * abs(float(lc)),
+          f"16a {label}: loss {float(ls)} on the card, {float(lc)} on CPU")
+    check(torch.equal(vs.cpu(), vc), f"16a {label}: visibility differs "
+          f"from the CPU's")
+    wc = grads_agree(f"16a {label} card vs CPU", gs, gc, 0.0,
+                     atol_of_max=DP_CPU_GRAD)
+    print(f"phase 16a [{label}] card vs CPU plain path (K = 2, one "
+          f"keyframe per rank, {cpu_s:.1f} s on the CPU): loss "
+          f"{float(ls):.7f} vs {float(lc):.7f}, visibility equal, gradients "
+          f"within {wc:.3e} of {DP_CPU_GRAD} x each tensor's largest",
+          flush=True)
+    # both kernels on rank 1's inputs (its keyframes see the scene from the
+    # origin, as rank 0's do)
+    intr = {"fu": intr4[1], "fv": intr4[0], "cu": intr4[3], "cv": intr4[2],
+            "H": H, "W": W}
+    pd, binned, meta = pair_inputs(st, batch[3][DP_K // 2],
+                                   {"p_cap": DP_P_CAP, "chunk": DP_CHUNK},
+                                   DEVICE, intrinsic=intr)
+    check(not bool(binned.overflow), f"16a: {int(binned.n_pairs)} pairs "
+          f"overflow p_cap {DP_P_CAP}")
+    fwd, bwd, *_ = check_kernels(f"16a rank 1's keyframe ({label})", pd,
+                                 binned.tile_chunks, meta, DP_CHUNK,
+                                 args.seed + 60, int(binned.n_pairs))
+    return fwd, bwd["bf16"]
+
+
+def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
+                    label):
+    """16b: phase 4's replay through GaussianMapper with `parallel`, every
+    call digest-checked across the ranks (`verify`)."""
+    import torch
+    from vings_mono_tpu_torch.runners import run_mapping
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mapper, records = run_mapping.run(
+        dict(cfg, parallel=parallel), str(OUT / f"run_dp_{label}"))
+    run_s = time.perf_counter() - t0
+    g = mapper.group
+    ranks = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
+                                                  tk.rasterize_backward)}}
+    ranks.update(g.launches)
+    peak = {0: torch.cuda.max_memory_allocated(), **g.peak_bytes}
+    kf_ms = [r["ms"] for r in records]
+    iters = len(records) * args.iters
+    comm = g.comm_s * 1e3 / iters
+    print(f"phase 16b replay [{label}, {nvidia_smi()}]: {len(records)} "
+          f"keyframes x {args.iters} iters in {run_s:.1f} s, keyframe mean "
+          f"{np.mean(kf_ms):.1f} ms (phase 4, dp 1: {phase4_ms:.1f} ms); "
+          f"collectives {comm:.2f} ms per iteration on rank 0's host clock "
+          f"({g.comm_calls} collectives, {g.calls} dp calls, each "
+          f"digest-checked); train psnr last {records[-1]['psnr']:.3f} "
+          f"(phase 4: {phase4_psnr:.3f}); peak memory per rank "
+          f"{ {r: round(b / 1e9, 3) for r, b in peak.items()} } GB; "
+          f"launches per rank {ranks}", flush=True)
+    check(all(r["losses_finite"] for r in records),
+          f"16b {label}: a loss is not finite")
+    check(g.calls == 2 * len(records), f"16b {label}: {g.calls} dp calls "
+          f"for {len(records)} keyframes")
+    for r, counts in ranks.items():
+        for name, n in counts.items():
+            check(n >= iters, f"16b {label}: rank {r} launched {name} "
+                  f"{n} times for {iters} iterations")
+    check_no_children(f"phase 16b [{label}]", g)
+    return ranks
+
+
+def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
+    """16c: smoke.yaml through runners.run.run with `parallel`."""
+    import torch
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.utils.config import load_config
+    save_dir = OUT / f"smoke_dp_{label}"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = load_config(str(SMOKE), overrides={
+        "output": {"save_dir": str(save_dir)},
+        "device": {"tracker": DEVICE, "mapper": DEVICE},
+        "parallel": parallel})
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    t0 = time.perf_counter()
+    tracker, mapper, timer = run_mod.run(cfg, str(save_dir),
+                                         sync_timer=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    g = mapper.group
+    ranks = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
+                                                  tk.rasterize_backward)}}
+    ranks.update(g.launches)
+    print(timer.report().replace("\n", "\nphase 16c ").replace(
+        "stage times", "phase 16c stage times"), flush=True)
+    stats = run_quality(f"phase 16c [{label}]", cfg, save_dir, tracker,
+                        mapper, run_s)
+    print(f"phase 16c smoke.yaml [{label}, {nvidia_smi()}]: "
+          f"{cfg['dataset']['n_frames']} frames in {run_s:.1f} s, "
+          f"{stats['fps']:.3f} frames/s (phase 12, dp 1: "
+          f"{smoke_stats['fps']:.3f}), ATE {stats['ate']} (phase 12: "
+          f"{smoke_stats['ate']}), PSNR {stats['psnr']} (phase 12: "
+          f"{smoke_stats['psnr']}); the mapper trained on "
+          f"{mapper.time_idx} keyframes in {g.calls} dp calls; "
+          f"collectives {g.comm_s * 1e3:.1f} ms on rank 0's host clock; "
+          f"launches per rank {ranks}", flush=True)
+    shared = sorted(set(stats["poses"]) & set(smoke_stats["poses"]))
+    dist, ang = pose_gap(stats["poses"], smoke_stats["poses"], shared)
+    print(f"phase 16c trajectory against phase 12's: {len(shared)} shared "
+          f"keyframe timestamps, largest pose gap {dist:.4e} units / "
+          f"{ang:.4f} deg (the map's refined poses feed the tracker, and "
+          f"two dp = 1 runs with these random weights also part: phase "
+          f"14)", flush=True)
+    check(mapper.time_idx >= 10 and g.calls >= 2 * mapper.time_idx,
+          f"16c {label}: {mapper.time_idx} keyframes, {g.calls} dp calls")
+    check(stats["psnr"] is not None and np.isfinite(stats["psnr"]),
+          f"16c {label}: PSNR {stats['psnr']}")
+    for r, counts in ranks.items():
+        for name, n in counts.items():
+            check(n >= mapper.time_idx * int(cfg["training_args"]["iters"]),
+                  f"16c {label}: rank {r} launched {name} {n} times")
+    check_no_children(f"phase 16c [{label}]", g)
+    return {name: sum(c[name] for c in ranks.values())
+            for name in ranks[0]}
+
+
+def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
+    """Phase 16. Returns the launches of 16c's run summed over the ranks
+    and the kernels' largest errors against their twins on 16a's inputs."""
+    import gc
+    import torch
+    from vings_mono_tpu_torch.parallel import mesh
+    t_start = time.perf_counter()
+    # ranks on one card share its memory: release what the earlier phases
+    # left in this process's caching allocator before the followers start
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16: rank 0 holds {torch.cuda.memory_reserved() / 1e9:.2f} "
+          f"GB of the card when the followers start", flush=True)
+    runs = [("gloo, cuda:0 x 2", DP_GLOO)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl, cuda:0 + cuda:1", DP_NCCL))
+    else:
+        print(f"phase 16: NCCL did not run: this machine has "
+              f"{torch.cuda.device_count()} CUDA device (NCCL needs one "
+              f"card per rank); 16a and 16b ran over Gloo on cuda:0 only",
+              flush=True)
+    errs = []
+    for label, parallel in runs:
+        group = mesh.make_dp_mesh(parallel["dp"], devices=parallel.get(
+            "devices"), backend=parallel.get("backend"))
+        group.verify = True
+        try:
+            errs.append(dp_grads_phase(args, tk, group, label))
+        finally:
+            group.close()
+        check_no_children(f"phase 16a [{label}]", group)
+        dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
+                        label)
+    launches = dp_smoke_phase(args, tk, smoke_stats, DP_GLOO, "gloo")
+    print(f"phase 16 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches, [max(e[0] for e in errs), max(e[1] for e in errs)]
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -3652,7 +3982,7 @@ def main(argv=None):
     opt_launches = mapper_options_phase(args, tk, cfg, float(np.mean(kf_ms)),
                                         win_dir, args.seed)
     # ---- 12. smoke.yaml as committed: loop closure and dynamic masks
-    all_launches, all_errs, end = smoke_phase(args, tk)
+    all_launches, all_errs, end, smoke_stats = smoke_phase(args, tk)
     # ---- 13. the learned nets and the rectification, card against CPU
     detector_phase(args.seed + 40)
     fastsam_phase(args.seed + 41)
@@ -3666,6 +3996,9 @@ def main(argv=None):
     # then the trainer
     folder_launches, main_errs = kitti_folder_phase(args, tk)
     train_phase(args)
+    # ---- 16. data parallelism over the keyframe window
+    dp_launches, dp_errs = dp_phase(args, tk, cfg, float(np.mean(kf_ms)),
+                                    records[-1]["psnr"], smoke_stats)
     kernels = []
     for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
             err_800 in (
@@ -3683,6 +4016,7 @@ def main(argv=None):
             "launches_multiprocess": folder_launches["c"][name],
             "launches_mobile": folder_launches["d"][name],
             "launches_metric_session": metric_launches[name],
+            "launches_dp": dp_launches[name],
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -3693,13 +4027,14 @@ def main(argv=None):
             # its absolute error is read against the row maximum
             "max_abs_err": err, "max_err_over_scale": err_rel,
             "max_abs_err_metric_session": err_metric,
+            "max_abs_err_dp": dp_errs[0 if key == "fwd" else 1],
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

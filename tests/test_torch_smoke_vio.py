@@ -154,8 +154,8 @@ def test_check_ported_accepts_and_refuses(config):
     """`check_ported` accepts smoke_vio.yaml and the KITTI 2011_09_30_drive_
     0028 configuration as committed (use_vis, use_global_ba, storage, vio),
     and the mapper options use_sky, use_refine and coarse_frac, use_loop,
-    use_dynamic and use_metric; it still raises, naming it, for
-    parallel.dp (--resume and --checkpoint-every are run by
+    use_dynamic and use_metric, and parallel.dp; it still raises, naming
+    it, for parallel.sp > 1 (--resume and --checkpoint-every are run by
     tests/test_torch_vo_slice.py test_ported_option_runs)."""
     from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
     cfg = load_config(str(config))
@@ -172,7 +172,11 @@ def test_check_ported_accepts_and_refuses(config):
                                                 "coarse_frac": 0.5}),
                             device="cpu")
     assert mapper.sky is not None and mapper.coarse_frac == 0.5
-    with pytest.raises(NotImplementedError, match="parallel.dp"):
-        run_t.check_ported(dict(cfg, parallel={"dp": 2}))
-    with pytest.raises(NotImplementedError, match="parallel.dp"):
-        GaussianMapper(dict(small, parallel={"dp": 2}), device="cpu")
+    # parallel.dp is ported (tests/test_torch_parallel.py); the sp row
+    # split is not
+    run_t.check_ported(dict(cfg, parallel={"dp": 2}))
+    with pytest.raises(NotImplementedError, match="parallel.sp"):
+        run_t.check_ported(dict(cfg, parallel={"dp": 2, "sp": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        GaussianMapper(dict(small, parallel={"dp": 2, "sp": 2}),
+                       device="cpu")

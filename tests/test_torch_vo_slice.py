@@ -252,10 +252,14 @@ def test_unported_option_raises(what, tmp_path):
                          "mode: vio_gnss"),
         "dataset": (dict(base, dataset={"module": "no_such_dataset"}),
                     ModuleNotFoundError, "no_such_dataset"),
-        "parallel_dp": (dict(base, parallel={"dp": 2}), NotImplementedError,
-                        "parallel.dp"),
+        # parallel.dp is ported; the sp row split is not
+        "parallel_dp": (dict(base, parallel={"dp": 2, "sp": 2}),
+                        NotImplementedError, "parallel.sp"),
     }
     over, exc, match = calls[what]
+    if what == "parallel_dp":
+        run_vo.check_ported(load_config(overrides=dict(
+            base, parallel={"dp": 2})))
     with pytest.raises(exc, match=match):
         run_vo.run(load_config(overrides=over), str(tmp_path / "run"),
                    device="cpu")

@@ -8,8 +8,11 @@ its own pair-capacity bucket ladder), the sky sphere (`use_sky`), pose
 refinement (`use_refine`) and the coarse-to-fine phase
 (`training_args.coarse_frac`).
 
-Not ported yet: the multi-device `dp` mesh; a config that asks for it
-raises.
+`parallel: {dp: N}` shards the keyframe window over N ranks, one process
+each (`parallel/mesh.py`): this process is rank 0 and starts the others;
+binning and both train loops (and the loop-closure retrain) run on every
+rank, each on its K/N slots, against the state the mapper holds here,
+which every call replicates first. `close()` stops the other ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from .state import (STATE_FIELDS, adam_init, empty_state, state_from_numpy,
 from .train import (KeyframeBatch, bin_rows, bin_stack, draw_kf_schedule,
                     half_batch, half_intr4, permute_scatter_binned, pool2x2,
                     stablemask_control, storage_control, train_loop)
+from ..parallel.mesh import (SP_TODO, dp_bin_stack, dp_placement,
+                             dp_train_loop, make_dp_mesh)
 from ..ops.rasterizer import render
 
 
@@ -45,11 +50,15 @@ class GaussianMapper:
         self.cfg = cfg
         self.device = resolve_device(device or cfg["device"]["mapper"])
         m = cfg["mapper"]
-        if int((cfg.get("parallel") or {}).get("dp", 1)) > 1:
-            raise NotImplementedError(
-                "not ported to the torch mapper yet: parallel.dp")
         self.capacity = int(m["capacity"])
         self.kf_capacity = int(m["kf_capacity"])
+        pcfg = cfg.get("parallel") or {}
+        self.dp = int(pcfg.get("dp", 1))
+        if int(pcfg.get("sp", 1)) > 1:
+            raise NotImplementedError(SP_TODO)
+        if self.dp < 1 or self.kf_capacity % self.dp:
+            raise ValueError(f"mapper.kf_capacity {self.kf_capacity} must "
+                             f"divide by parallel.dp {self.dp}")
         # pair_capacity is the UPPER bucket; the mapper walks down to the
         # smallest bucket that fits the observed pair count — the tile
         # kernels' cost grows with p_cap, so dead capacity is waste. A
@@ -112,6 +121,28 @@ class GaussianMapper:
         self._binned_c = None
         self._cached_gids_c = None
         self._bin_age_c = None
+        # the dp group last: its followers are processes that close() stops
+        self.group = None
+        if self.dp > 1:
+            devices, backend = dp_placement(
+                self.dp, pcfg.get("platform"), pcfg.get("devices"),
+                pcfg.get("backend"))
+            here = self.device if self.device.type != "cuda" else \
+                torch.device("cuda", self.device.index or 0)
+            if devices[0] != here:
+                raise ValueError(f"parallel.devices[0] ({devices[0]}) is "
+                                 f"rank 0, the mapper's own device "
+                                 f"({self.device})")
+            self.group = make_dp_mesh(self.dp, devices=devices,
+                                      backend=backend)
+            # compare the ranks' state digests after every call (checks)
+            self.group.verify = bool(pcfg.get("verify", False))
+
+    def close(self):
+        """Stop the dp ranks (nothing to do at dp = 1); idempotent. Every
+        runner calls it when it ends, however it ends."""
+        if self.group is not None:
+            self.group.close()
 
     def invalidate_binning(self):
         """Drop both binning caches — required after any Gaussian teleport
@@ -135,8 +166,25 @@ class GaussianMapper:
                             self.device)
 
     def _kf_schedule(self, iters, n_valid):
-        """Window slot of each training iteration."""
-        return draw_kf_schedule(self.generator, iters, n_valid)
+        """Window slot of each training iteration; (iters, dp) with dp > 1,
+        each rank's slot within its own K/dp."""
+        return draw_kf_schedule(self.generator, iters, n_valid, self.dp,
+                                self.kf_capacity // self.dp)
+
+    # ---- the dp route ----------------------------------------------------
+    def _bin_all(self, batch, intr4, height, width, bin_kwargs):
+        """Bin every window camera; with dp > 1 each rank bins its own."""
+        if self.group is None:
+            return bin_stack(self.state, batch, intr4, height, width,
+                             **bin_kwargs)
+        return dp_bin_stack(self.group, self.state, batch, intr4, height,
+                            width, **bin_kwargs)
+
+    def _train(self, *targs, **tkw):
+        """train_loop, or dp_train_loop over the group with dp > 1."""
+        if self.group is None:
+            return train_loop(*targs, **tkw)
+        return dp_train_loop(self.group, *targs, **tkw)
 
     # ---- pair-capacity buckets -----------------------------------------
     def _drain_stats(self):
@@ -266,7 +314,9 @@ class GaussianMapper:
         gids = self._gids_host
         cached = getattr(self, "_binned" + sfx)
         cached_gids = getattr(self, "_cached_gids" + sfx)
-        full_rebin = (R <= 0 or R >= kc or cached is None)
+        # dp: a full re-bin every keyframe, K/dp cameras per rank, no cache
+        full_rebin = (R <= 0 or R >= kc or cached is None
+                      or self.group is not None)
         if not full_rebin:
             perm = np.zeros(kc, np.int64)
             have = np.zeros(kc, bool)
@@ -278,8 +328,7 @@ class GaussianMapper:
             if int((~have).sum()) > R:
                 full_rebin = True
         if full_rebin:
-            binned = bin_stack(self.state, batch, intr4, height, width,
-                               **bkw)
+            binned = self._bin_all(batch, intr4, height, width, bkw)
             age = np.zeros(kc, np.int64)
         else:
             age = np.where(have, getattr(self, "_bin_age" + sfx)[perm] + 1,
@@ -388,7 +437,7 @@ class GaussianMapper:
             hc, wc = self.H // 2, self.W // 2
             binned_c = self._refresh_binned(batch_c, intr4_c, height=hc,
                                             width=wc, sfx="_c")
-            train_loop(
+            self._train(
                 self.state, self.opt, batch_c, binned_c, intr4_c,
                 iters=iters_c, height=hc, width=wc,
                 kf_schedule=self._kf_schedule(iters_c, batch.n_valid),
@@ -406,7 +455,7 @@ class GaussianMapper:
                                       self.bin_kwargs, sky_images))
         # shape-only signature for MFU accounting (utils/mfu.py)
         self._mfu_sig = (shape_sig(targs), shape_sig(tkw), iters - iters_c)
-        _, _, metrics = train_loop(
+        _, _, metrics = self._train(
             *targs, iters=iters - iters_c,
             kf_schedule=self._kf_schedule(iters - iters_c, batch.n_valid),
             **tkw)
@@ -458,10 +507,10 @@ class GaussianMapper:
             self.H = int(viz_out["intrinsic"]["H"])
             self.W = int(viz_out["intrinsic"]["W"])
         batch = self._pack_batch(viz_out)
-        binned = bin_stack(self.state, batch, intr4, self.H, self.W,
-                           **self.bin_kwargs)
+        binned = self._bin_all(batch, intr4, self.H, self.W,
+                               self.bin_kwargs)
         ta = self.cfg["training_args"]
-        _, _, self.metrics = train_loop(
+        _, _, self.metrics = self._train(
             self.state, self.opt, batch, binned, intr4, iters=int(iters),
             height=self.H, width=self.W,
             kf_schedule=self._kf_schedule(int(iters), batch.n_valid),

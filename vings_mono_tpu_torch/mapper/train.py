@@ -105,20 +105,41 @@ def half_intr4(intr4):
     return tuple(float(x) for x in f)
 
 
-def draw_kf_schedule(generator, iters, n_valid):
-    """Default keyframe draw: one window slot per iteration."""
-    return torch.randint(0, max(n_valid, 1), (iters,),
-                         generator=generator).tolist()
+def local_n_valid(n_valid, rank, k_local):
+    """Real keyframes in dp rank `rank`'s slots [rank k_local, (rank+1)
+    k_local) of the window."""
+    return min(max(n_valid - rank * k_local, 0), k_local)
+
+
+def draw_kf_schedule(generator, iters, n_valid, dp=1, k_local=None):
+    """Default keyframe draw: one window slot per iteration; with dp > 1
+    an (iters, dp) list, rank r's slot drawn within its own k_local slots
+    (slot 0 where it holds no real keyframe)."""
+    if dp == 1:
+        return torch.randint(0, max(n_valid, 1), (iters,),
+                             generator=generator).tolist()
+    cols = [torch.randint(0, max(local_n_valid(n_valid, r, k_local), 1),
+                          (iters,), generator=generator).tolist()
+            for r in range(dp)]
+    return [list(row) for row in zip(*cols)]
 
 
 def train_loop(state: GaussianState, opt: SparseAdamState,
                batch: KeyframeBatch, binned_stack: BinnedScene, intr4, *,
                iters: int, height: int, width: int, kf_schedule,
-               weights=None, lrs=None, render_kwargs=(), sky=None):
+               weights=None, lrs=None, render_kwargs=(), sky=None,
+               group=None):
     """Run `iters` training iterations on the window, updating state and
     opt in place. kf_schedule lists the window slot each iteration renders
     (draw_kf_schedule). Returns (state, opt, metrics) with the last
     iteration's metrics plus `loss_per_iter` and `psnr_per_iter` (iters,).
+
+    group (a `parallel.mesh.DPGroup`) runs the loop as one rank of a dp
+    group, as the JAX loop runs with `axis_name`: batch and binned_stack
+    hold this rank's K/dp slots (n_valid still counts the whole window),
+    kf_schedule is this rank's column, and every iteration the ranks
+    combine their results (`_combine_ranks`) so that each applies the
+    same update.
 
     sky = (sky_state, sky_opt, sky_images (K,3,H,W), sky_binned) trains the
     sky sphere jointly: each iteration also renders the sphere through its
@@ -128,6 +149,10 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
     """
     rkw = dict(render_kwargs)
     metrics, losses, psnrs = {}, [], []
+    if group is not None:
+        # ranks whose slots are all padding contribute weight 0
+        valid = local_n_valid(batch.n_valid, group.rank,
+                              batch.images.shape[0]) > 0
     for it in range(iters):
         kf = int(kf_schedule[it])
         camera = make_camera(batch.w2cs[kf], intr4, height, width)
@@ -164,22 +189,32 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["psnr"] = psnr(rets["rgb"], batch.images[kf],
                                    batch.depths[kf][0] > 0)
-            losses.append(metrics["total"])
-            psnrs.append(metrics["psnr"])
             gp = dict(zip(params, grads[:-1]))
             cur0, cur1 = grads[-1][:, 0], grads[-1][:, 1]
-            _score_step(state, cur0, cur1, batch.global_kf_id[kf])
+            visible = rets["visible"]
+            sky_vis = None if sky is None else srets["visible"]
+            gid_kf = batch.global_kf_id[kf]
+            if group is None:
+                best0 = cur0
+            else:
+                (gp, sky_grads, metrics, cur0, cur1, best0, gid_kf, visible,
+                 sky_vis) = _combine_ranks(group, valid, gp, sky_grads,
+                                           metrics, cur0, cur1, gid_kf,
+                                           visible, sky_vis)
+            losses.append(metrics["total"])
+            psnrs.append(metrics["psnr"])
+            _score_step(state, cur0, cur1, best0, gid_kf)
             # anti-forgetting gradient weighting; 1 where no scores flow
             glob0 = state.global_scores[:, 0]
             wgt = torch.where(cur0 + glob0 > 0.0,
                               cur0 / (glob0 + 1e-6 + cur0),
                               torch.ones_like(cur0))[:, None]
             gp = {k: g * wgt for k, g in gp.items()}
-            step_mask = rets["visible"] & state.alive & (~state.stable)
+            step_mask = visible & state.alive & (~state.stable)
             sparse_adam_step(state, gp, opt, step_mask, lrs)
             if sky is not None:
                 sparse_adam_step(sky_state, sky_grads, sky_opt,
-                                 srets["visible"] & sky_state.alive, lrs)
+                                 sky_vis & sky_state.alive, lrs)
     if losses:
         metrics["loss_per_iter"] = torch.stack(losses)
         metrics["psnr_per_iter"] = torch.stack(psnrs)
@@ -199,17 +234,67 @@ def _render_sky_params(sky_params, alive, camera, binned, rkw):
                   **rkw)
 
 
-def _score_step(state: GaussianState, cur0, cur1, gid_kf):
-    """Score bookkeeping (add_records + keyframe attribution), in place."""
+def _combine_ranks(group, valid, gp, sky_grads, metrics, cur0, cur1,
+                   gid_kf, visible, sky_vis):
+    """The JAX loop's `axis_name` combination (mapper/train.py there),
+    with w = 1 on a rank holding a real keyframe and 0 elsewhere:
+    gradients (main and sky), metrics and cur0 become sum(x w) / sum(w);
+    cur1 = max(cur1 w); best0 = max(cur0 w); the keyframe attribution is,
+    per Gaussian, the largest id among the valid ranks whose cur0 w reaches
+    best0; visibility is the OR over valid ranks. Three all-reduces: one
+    SUM, one MAX of floats, one MAX of the attribution."""
+    w = 1.0 if valid else 0.0
+    names = list(metrics)
+    sums = [g * w for g in gp.values()] + \
+        [g * w for g in sky_grads.values()] + \
+        [cur0 * w, (visible & valid).to(torch.float32)]
+    if sky_vis is not None:
+        sums.append((sky_vis & valid).to(torch.float32))
+    sums.append(torch.stack([metrics[k] for k in names]) * w)
+    sums.append(torch.full((1,), w, dtype=torch.float32,
+                           device=cur0.device))
+    flat = group.all_reduce(torch.cat([x.reshape(-1) for x in sums]), "sum")
+    denom = flat[-1]
+    parts, off = [], 0
+    for x in sums[:-1]:
+        parts.append(flat[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    n_gp, n_sky = len(gp), len(sky_grads)
+    gp = {k: s / denom for k, s in zip(gp, parts[:n_gp])}
+    sky_grads = {k: s / denom for k, s in zip(sky_grads,
+                                              parts[n_gp:n_gp + n_sky])}
+    rest = parts[n_gp + n_sky:]
+    cur0_w = cur0 * w
+    cur0 = rest[0] / denom
+    visible = rest[1] > 0
+    if sky_vis is not None:
+        sky_vis = rest[2] > 0
+    metrics = dict(zip(names, rest[-1] / denom))
+    mx = group.all_reduce(torch.cat([cur1 * w, cur0_w]), "max")
+    n = cur1.shape[0]
+    cur1, best0 = mx[:n], mx[n:]
+    gid = torch.where((cur0_w >= best0) & valid, gid_kf.to(torch.int32),
+                      torch.tensor(-(1 << 30), dtype=torch.int32,
+                                   device=cur0.device))
+    gid = group.all_reduce(gid, "max")
+    return (gp, sky_grads, metrics, cur0, cur1, best0, gid, visible,
+            sky_vis)
+
+
+def _score_step(state: GaussianState, cur0, cur1, best0, gid_kf):
+    """Score bookkeeping (add_records + keyframe attribution), in place.
+    The attribution and the stored maximum take best0, the largest score
+    of one keyframe (cur0 itself at dp = 1); gid_kf is that keyframe's id,
+    one for all rows or one per row."""
     state.local_scores.copy_(torch.stack(
         [state.local_scores[:, 0] + cur0,
          torch.maximum(state.local_scores[:, 1], cur1)], dim=-1))
     state.global_scores.copy_(torch.clamp(torch.stack(
         [state.global_scores[:, 0] + cur0, state.global_scores[:, 1]],
         dim=-1), 0.0, 1e4))
-    replace = state.globalkf_max_scores < cur0
+    replace = state.globalkf_max_scores < best0
     state.globalkf_max_scores.copy_(
-        torch.where(replace, cur0, state.globalkf_max_scores))
+        torch.where(replace, best0, state.globalkf_max_scores))
     state.globalkf_id.copy_(torch.where(replace, gid_kf.to(torch.int32),
                                         state.globalkf_id))
 

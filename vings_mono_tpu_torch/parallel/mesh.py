@@ -1,0 +1,810 @@
+"""Data parallelism over the mapper's keyframe window, one process per rank.
+
+The counterpart of the JAX package's `parallel/mesh.py`. There one process
+drives a mesh of devices and `shard_map` runs the train loop's body on each;
+here every dp rank is a process with its own host thread, because the port
+is bound by the host's launch rate and one thread could not feed N devices.
+
+The caller's process is rank 0, the *leader*: it runs the tracker, the
+runner and the mapper as before. `make_dp_mesh` starts ranks 1..N-1, the
+*followers*, with the `spawn` method; all join one `torch.distributed`
+process group through a `file://` store in a temporary directory, so no TCP
+port is needed. A follower waits on its command queue (no collective is
+pending between calls, so an idle follower never times out) and keeps
+nothing between calls but the group.
+
+A dp call (`DPGroup.call`) runs the same body on every rank, as `shard_map`
+runs its body on every device: the leader puts the call's name and static
+arguments on each follower's queue, then every rank runs the body, whose
+collectives move the tensors. A body starts by broadcasting what JAX
+replicates (`replicate`, JAX's `put_replicated`: the Gaussian state, its Adam
+moments, the sky's) and scattering what JAX shards over `dp` (`put_dp`: rank
+r gets window slots [r K/dp, (r+1) K/dp)), so whatever the leader changed
+between calls (densify, prune, paging, rectification, refinement) reaches
+every rank. After a train call every rank holds the same state, bit for bit;
+`verify` checks that after every call.
+
+Backends: NCCL for CUDA ranks on distinct cards; Gloo for CPU ranks and for
+several ranks on one card, with CUDA tensors staged through the host. There
+is no fallback: a CUDA group that names more cards than the machine has
+raises, where JAX's `make_dp_mesh` falls back to the CPU's virtual devices.
+
+Not ported: the `sp` axis (image rows sharded within a keyframe, used by
+JAX's naive-render dryrun); `make_mesh` with sp > 1 raises.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import multiprocessing as mp
+import os
+import queue
+import shutil
+import tempfile
+import threading
+import time
+import traceback
+from types import SimpleNamespace
+
+import torch
+import torch.distributed as dist
+
+from ..mapper.cameras import make_camera
+from ..mapper.losses import mapper_loss
+from ..mapper.state import (PARAM_FIELDS, STATE_FIELDS, GaussianState,
+                            SparseAdamState, sparse_adam_step)
+from ..mapper.train import KeyframeBatch, bin_rows, train_loop
+from ..ops.rasterizer import BinnedScene, render
+from ..ops.rasterizer import tile_kernel
+
+DEFAULT_TIMEOUT_S = 600.0   # bound of one collective and of the group's start
+POLL_S = 0.2                # liveness polling period while waiting
+SP_TODO = ("the sp axis (image rows sharded within a keyframe) is not "
+           "ported: ROADMAP.md §A, the sp row split")
+BIN_FIELDS = ("xyz", "log_scale", "quat", "logit_opacity", "rgb", "alive")
+KERNELS = (tile_kernel.rasterize_forward, tile_kernel.rasterize_backward)
+_ALIGN = 8                  # byte alignment of each tensor in a packed buffer
+
+
+# ---- placement ------------------------------------------------------------
+def dp_placement(dp, platform=None, devices=None, backend=None):
+    """(devices, backend) of a dp group, the checks of `make_dp_mesh`.
+
+    devices default to cuda:0 .. cuda:N-1, or N times cpu with platform
+    "cpu"; backend defaults to nccl for CUDA and gloo for the CPU. Raises
+    RuntimeError when the CUDA devices named are not all present (no
+    fallback to the CPU) and ValueError for a device list NCCL cannot
+    serve."""
+    dp = int(dp)
+    if dp < 1:
+        raise ValueError(f"parallel.dp must be >= 1, got {dp}")
+    if devices is None:
+        plat = {"gpu": "cuda"}.get(platform, platform or "cuda")
+        if plat not in ("cpu", "cuda"):
+            raise ValueError(f"parallel.platform {platform!r}: the port "
+                             "runs ranks on 'cpu' or 'cuda'")
+        devices = ["cpu"] * dp if plat == "cpu" else [
+            f"cuda:{i}" for i in range(dp)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != dp:
+        raise ValueError(f"parallel.devices names {len(devices)} devices "
+                         f"for dp = {dp}")
+    devices = [torch.device("cuda", d.index or 0) if d.type == "cuda"
+               else d for d in devices]
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"parallel.devices must all be cpu or all cuda: "
+                         f"{[str(d) for d in devices]}")
+    cuda = devices[0].type == "cuda"
+    backend = backend or ("nccl" if cuda else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"parallel.backend {backend!r}: nccl or gloo")
+    if not cuda and backend == "nccl":
+        raise ValueError("NCCL needs CUDA ranks; CPU ranks use backend: "
+                         "gloo")
+    if cuda:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        need = max(d.index for d in devices) + 1
+        if have < need:
+            raise RuntimeError(
+                f"parallel: dp = {dp} on {[str(d) for d in devices]}, but "
+                f"this machine has {have} CUDA device(s). The port does not "
+                "fall back to the CPU: set parallel.platform: cpu, or put "
+                "several ranks on one card with backend: gloo, devices: "
+                "[cuda:0, cuda:0]")
+        if backend == "nccl" and len(set(devices)) < dp:
+            raise ValueError(
+                f"NCCL cannot run two ranks on one device "
+                f"({[str(d) for d in devices]}): use `backend: gloo`")
+    return devices, backend
+
+
+# ---- packing: one flat byte buffer per collective --------------------------
+def tensor_meta(tensors):
+    """(shape, dtype) of each tensor, None for None: what a receiving rank
+    needs to unpack a buffer."""
+    return [None if t is None else (tuple(t.shape), t.dtype)
+            for t in tensors]
+
+
+def _nbytes(meta):
+    """(bytes, bytes padded to _ALIGN) of a tensor described by meta."""
+    shape, dtype = meta
+    n = torch.empty(0, dtype=dtype).element_size()
+    for s in shape:
+        n *= s
+    return n, -(-n // _ALIGN) * _ALIGN
+
+
+def pack(tensors, device):
+    """The tensors' bytes, each padded to 8 bytes, in one uint8 tensor."""
+    parts = []
+    for t in tensors:
+        if t is None:
+            continue
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        parts.append(b)
+        pad = -b.numel() % _ALIGN
+        if pad:
+            parts.append(b.new_zeros(pad))
+    if not parts:
+        return torch.zeros(0, dtype=torch.uint8, device=device)
+    return torch.cat(parts)
+
+
+def unpack(buf, metas):
+    """Inverse of `pack`: views into buf."""
+    out, off = [], 0
+    for m in metas:
+        if m is None:
+            out.append(None)
+            continue
+        size, padded = _nbytes(m)
+        out.append(buf[off:off + size].view(m[1]).view(m[0]))
+        off += padded
+    return out
+
+
+def digest(tensors):
+    """blake2b of the tensors' bytes (the bitwise equality check of the
+    replicated state across ranks)."""
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        if t is None:
+            h.update(b"none")
+            continue
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _launch_counts():
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def _numeric_mode():
+    """The process-wide settings a follower copies from the leader."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.get_num_threads())
+
+
+def _set_numeric_mode(mode):
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     threads) = mode
+    torch.set_num_threads(threads)
+
+
+# ---- the group -------------------------------------------------------------
+class DPGroup:
+    """One rank's handle of the dp process group; the leader's also owns
+    the followers. The collectives are SPMD: every rank calls the same one
+    in the same order, the leader with the data, followers with metas."""
+
+    def __init__(self, rank, world, device, backend, timeout_s):
+        self.rank, self.world = int(rank), int(world)
+        self.device = torch.device(device)
+        self.backend = backend
+        self.timeout_s = float(timeout_s)
+        # Gloo moves CUDA tensors through the host; doing it here keeps
+        # one code path for CPU and CUDA ranks
+        self.staged = backend == "gloo" and self.device.type == "cuda"
+        self.comm_device = torch.device("cpu") if self.staged \
+            else self.device
+        self._pinned = {}         # (numel, dtype) -> pinned staging buffer
+        self.verify = False       # compare state digests after every call
+        self.comm_s = 0.0         # host seconds in collectives (this rank)
+        self.comm_calls = 0
+        self.calls = 0
+        # leader only: the followers and what they report
+        self._procs, self._cmd_qs, self._reply_q = [], [], None
+        self._tmpdir = None
+        self._in_call = False
+        self.launches = {}        # follower rank -> {kernel: launches}
+        self.peak_bytes = {}      # follower rank -> peak device bytes
+        self.closed = False
+
+    # -- start / stop (leader) --
+    @classmethod
+    def start(cls, devices, backend):
+        """Spawn ranks 1..N-1 on devices[1:], join the group as rank 0."""
+        if dist.is_initialized():
+            raise RuntimeError("a process group is already open in this "
+                               "process: close the other dp group first")
+        devices = [torch.device(d) for d in devices]
+        g = cls(0, len(devices), devices[0], backend, DEFAULT_TIMEOUT_S)
+        g._tmpdir = tempfile.mkdtemp(prefix="vings_dp_")
+        init = "file://" + os.path.join(g._tmpdir, "store")
+        ctx = mp.get_context("spawn")
+        g._reply_q = ctx.Queue()
+        try:
+            for r in range(1, g.world):
+                q = ctx.Queue()
+                p = ctx.Process(
+                    target=_follower_main, name=f"vings-dp-rank{r}",
+                    args=(r, g.world, init, str(devices[r]), backend,
+                          g.timeout_s, q, g._reply_q, _numeric_mode()),
+                    daemon=True)
+                p.start()
+                g._cmd_qs.append(q)
+                g._procs.append(p)
+            g._join(init)
+        except BaseException:
+            g._in_call = True     # followers may sit in the rendezvous
+            g.close()
+            raise
+        return g
+
+    def _join(self, init):
+        """init_process_group as rank 0, watching the followers: one that
+        dies before it joins raises here instead of a wait to the
+        timeout."""
+        err = []
+
+        def target():
+            try:
+                _init_process_group(self, init)
+            except BaseException as e:   # re-raised below
+                err.append(e)
+        t = threading.Thread(target=target, daemon=True)
+        t.start()
+        while t.is_alive():
+            t.join(POLL_S)
+            if t.is_alive():
+                self._check_followers()
+        if err:
+            raise err[0]
+
+    def close(self, timeout_s=30.0):
+        """Stop and join the followers (terminating any that do not exit
+        in time) and leave the process group. Idempotent."""
+        if self.closed:
+            return
+        self.closed = True
+        if self.rank == 0:
+            if not self._in_call:
+                for q in self._cmd_qs:
+                    q.put(None)
+            else:
+                # after a failed call followers may wait in a collective
+                for p in self._procs:
+                    p.terminate()
+            deadline = time.monotonic() + timeout_s
+            while any(p.is_alive() for p in self._procs) and \
+                    time.monotonic() < deadline:
+                self._drain()     # a full queue would block its writer
+                for p in self._procs:
+                    p.join(POLL_S)
+            for p in self._procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            self._drain()
+            for q in self._cmd_qs + [self._reply_q]:
+                if q is not None:
+                    q.close()
+                    q.cancel_join_thread()
+            if self._tmpdir:
+                shutil.rmtree(self._tmpdir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def alive_followers(self):
+        return [p for p in self._procs if p.is_alive()]
+
+    # -- follower health (leader) --
+    def _drain(self):
+        out = []
+        while self._reply_q is not None:
+            try:
+                out.append(self._reply_q.get_nowait())
+            except (queue.Empty, OSError, ValueError):
+                break
+        return out
+
+    def _raise_errors(self, msgs, cause=None):
+        for rank, kind, payload in msgs:
+            if kind == "error":
+                raise RuntimeError(f"dp rank {rank} failed:\n{payload}") \
+                    from cause
+
+    def _check_followers(self, cause=None):
+        self._raise_errors(self._drain(), cause)
+        dead = [(i + 1, p.exitcode) for i, p in enumerate(self._procs)
+                if not p.is_alive()]
+        if dead:
+            raise RuntimeError(f"dp follower(s) exited (rank, exit code): "
+                               f"{dead}") from cause
+
+    def _collect(self):
+        """The followers' reports of the call that just ran on this rank."""
+        reports = {}
+        deadline = time.monotonic() + self.timeout_s
+        while len(reports) < self.world - 1:
+            try:
+                rank, kind, payload = self._reply_q.get(timeout=POLL_S)
+            except queue.Empty:
+                self._check_followers()
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"dp followers did not report in "
+                                       f"{self.timeout_s} s")
+                continue
+            if kind == "error":
+                raise RuntimeError(f"dp rank {rank} failed:\n{payload}")
+            reports[rank] = payload
+        return reports
+
+    # -- calls --
+    def call(self, name, static, payload):
+        """Run body `name` on every rank: the followers get (name,
+        static), the leader runs it with `payload` too. Returns the
+        leader's result. A follower's exception, or its death, is raised
+        here."""
+        if self.closed:
+            raise RuntimeError("the dp group is closed")
+        self._check_followers()
+        static = dict(static, verify=self.verify)
+        for q in self._cmd_qs:
+            q.put((name, static))
+        self._in_call = True
+        try:
+            out, replicated = BODIES[name](self, static, payload)
+        except BaseException as e:
+            # a follower's failure is the usual cause of a failed
+            # collective here: give its report time to arrive
+            deadline = time.monotonic() + min(self.timeout_s, 10.0)
+            while time.monotonic() < deadline:
+                self._raise_errors(self._drain(), e)
+                if any(not p.is_alive() for p in self._procs):
+                    self._check_followers(e)
+                time.sleep(POLL_S)
+            raise
+        mine = digest(replicated) if self.verify else None
+        reports = self._collect()
+        self._in_call = False
+        self.calls += 1
+        for rank, rep in reports.items():
+            acc = self.launches.setdefault(rank, dict.fromkeys(
+                rep["launches"], 0))
+            for k, n in rep["launches"].items():
+                acc[k] += n
+            self.peak_bytes[rank] = max(self.peak_bytes.get(rank, 0),
+                                        rep["peak_bytes"])
+            if self.verify and rep["digest"] != mine:
+                raise RuntimeError(f"dp rank {rank}'s state after {name} "
+                                   f"differs from rank 0's")
+        return out
+
+    # -- collectives (every rank, same order) --
+    def _timed(self, fn):
+        if self.staged:
+            # the host copy waits for the device anyway; start the clock
+            # after the work queued before the collective
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        self.comm_s += time.perf_counter() - t0
+        self.comm_calls += 1
+        return out
+
+    def _empty(self, metas):
+        n = sum(_nbytes(m)[1] for m in metas if m is not None)
+        return torch.empty(n, dtype=torch.uint8, device=self.comm_device)
+
+    def replicate(self, tensors, metas):
+        """Broadcast from rank 0 (JAX's `put_replicated` / `replicate`).
+        The leader passes the tensors and gets them back as they are;
+        a follower passes None and gets views of one received buffer."""
+        def run():
+            if self.rank == 0:
+                buf = pack(tensors, self.device).to(self.comm_device)
+            else:
+                buf = self._empty(metas)
+            dist.broadcast(buf, src=0)
+            return buf
+        buf = self._timed(run)
+        if self.rank == 0:
+            return list(tensors)
+        return unpack(buf.to(self.device), metas)
+
+    def put_dp(self, tensors, metas):
+        """Scatter slot slices over dp (JAX's `put_dp` / `shard_batch`
+        without the sp rows): every tensor has K rows on the leader and
+        rank r gets rows [r K/dp, (r+1) K/dp). `metas` are the local
+        slices' (shape, dtype)."""
+        if self.rank == 0:
+            k = next(t.shape[0] for t in tensors if t is not None)
+            kl = k // self.world
+            local = [None if t is None else t[:kl] for t in tensors]
+
+        def run():
+            out = self._empty(metas)
+            bufs = None
+            if self.rank == 0:
+                bufs = [pack([None if t is None else t[r * kl:(r + 1) * kl]
+                              for t in tensors], self.device)
+                        .to(self.comm_device) for r in range(self.world)]
+            dist.scatter(out, scatter_list=bufs, src=0)
+            return out
+        out = self._timed(run)
+        if self.rank == 0:
+            return local
+        return unpack(out.to(self.device), metas)
+
+    def gather_dp(self, tensors):
+        """Inverse of put_dp: the ranks' rows stacked in rank order on the
+        leader (None elsewhere). Every rank passes tensors of the same
+        shapes."""
+        metas = tensor_meta(tensors)
+
+        def run():
+            buf = pack(tensors, self.device).to(self.comm_device)
+            bufs = [torch.empty_like(buf) for _ in range(self.world)] \
+                if self.rank == 0 else None
+            dist.gather(buf, gather_list=bufs, dst=0)
+            return bufs
+        bufs = self._timed(run)
+        if self.rank != 0:
+            return None
+        parts = [list(tensors)] + [unpack(b.to(self.device), metas)
+                                   for b in bufs[1:]]
+        return [None if xs[0] is None else torch.cat(xs)
+                for xs in zip(*parts)]
+
+    def all_reduce(self, buf, op):
+        """all_reduce of one flat tensor (op: "sum" or "max"). Staged
+        through a pinned host buffer kept per size: the train loop's
+        reductions repeat every iteration at the same sizes."""
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+        def run():
+            if not self.staged:
+                dist.all_reduce(buf, op=rop)
+                return buf
+            key = (buf.numel(), buf.dtype)
+            if key not in self._pinned:
+                self._pinned[key] = torch.empty(
+                    buf.shape, dtype=buf.dtype, pin_memory=True)
+            host = self._pinned[key]
+            host.copy_(buf)
+            dist.all_reduce(host, op=rop)
+            # a synchronous copy: the buffer is free again on return
+            return host.to(self.device)
+        return self._timed(run)
+
+
+def _init_process_group(group, init):
+    dist.init_process_group(
+        group.backend, init_method=init, rank=group.rank,
+        world_size=group.world,
+        timeout=datetime.timedelta(seconds=group.timeout_s))
+
+
+def _follower_main(rank, world, init, device, backend, timeout_s, cmd_q,
+                   reply_q, mode):
+    """A follower's process: join the group, then run the leader's calls
+    until it sends None or exits. An exception goes back on reply_q and
+    ends the follower (its collectives are out of step after it)."""
+    try:
+        _set_numeric_mode(mode)
+        group = DPGroup(rank, world, device, backend, timeout_s)
+        if group.device.type == "cuda":
+            torch.cuda.set_device(group.device)
+        _init_process_group(group, init)
+    except BaseException:   # reported to the leader, which raises it
+        reply_q.put((rank, "error", traceback.format_exc()))
+        return
+    parent = mp.parent_process()
+    try:
+        while True:
+            try:
+                msg = cmd_q.get(timeout=POLL_S)
+            except queue.Empty:
+                if parent is not None and not parent.is_alive():
+                    return
+                continue
+            if msg is None:
+                return
+            name, static = msg
+            try:
+                before = _launch_counts()
+                _, replicated = BODIES[name](group, static, None)
+                after = _launch_counts()
+                rep = {"launches": {k: after[k] - before[k] for k in after},
+                       "peak_bytes": torch.cuda.max_memory_allocated(
+                           group.device) if group.device.type == "cuda"
+                       else 0,
+                       "digest": digest(replicated) if static["verify"]
+                       else None}
+            except BaseException:   # reported to the leader, which raises
+                reply_q.put((rank, "error", traceback.format_exc()))
+                return
+            reply_q.put((rank, "ok", rep))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_dp_mesh(dp, platform=None, devices=None, backend=None):
+    """Start a dp group of `dp` ranks (JAX's `make_dp_mesh`; see
+    `dp_placement` for the defaults and the refusals). The caller is
+    rank 0 and must `close()` it."""
+    devices, backend = dp_placement(dp, platform, devices, backend)
+    return DPGroup.start(devices, backend)
+
+
+def make_mesh(n_devices=None, devices=None, dp=None):
+    """JAX's (dp, sp) `make_mesh`: n devices (default: every CUDA device),
+    dp = n when n <= 4 else n // 2, sp = n // dp. Only sp = 1 is ported;
+    it starts the dp group."""
+    if devices is None:
+        if n_devices is None:
+            n_devices = torch.cuda.device_count()
+        devices = [f"cuda:{i}" for i in range(n_devices)]
+    n = len(devices)
+    if dp is None:
+        dp = n if n <= 4 else n // 2
+    if n // dp > 1:
+        raise NotImplementedError(SP_TODO)
+    return make_dp_mesh(dp, devices=list(devices)[:dp])
+
+
+# ---- the mapper's dp calls ------------------------------------------------
+def _check_divides(k, world):
+    if k % world:
+        raise ValueError(f"kf_capacity {k} must divide by parallel.dp "
+                         f"{world}")
+
+
+def dp_bin_stack(group, state, batch, intr4, height, width, **bin_kwargs):
+    """Bin every window camera, each rank its own K/dp cameras against the
+    replicated state (JAX's `dp_bin_stack`); the rows are gathered on the
+    leader, which returns the whole window's BinnedScene (its other
+    readers: refinement, storage control and the pair-bucket stats)."""
+    _check_divides(batch.w2cs.shape[0], group.world)
+    rep = [getattr(state, f) for f in BIN_FIELDS]
+    local = [batch.w2cs[:batch.w2cs.shape[0] // group.world]]
+    static = {"rep_meta": tensor_meta(rep), "shard_meta": tensor_meta(local),
+              "intr4": tuple(intr4), "height": int(height),
+              "width": int(width), "bin_kwargs": dict(bin_kwargs)}
+    return group.call("bin", static, (rep, [batch.w2cs]))
+
+
+def _bin_body(group, st, payload):
+    rep, shard = payload if group.rank == 0 else (None, None)
+    geom = SimpleNamespace(**dict(zip(
+        BIN_FIELDS, group.replicate(rep, st["rep_meta"]))))
+    (w2cs,) = group.put_dp(shard, st["shard_meta"])
+    part = bin_rows(geom, w2cs, st["intr4"], st["height"], st["width"],
+                    **st["bin_kwargs"])
+    rows = group.gather_dp(list(part))
+    return (None if rows is None else BinnedScene(*rows)), []
+
+
+def _opt_tensors(opt):
+    return [opt.m[k] for k in PARAM_FIELDS] + [opt.v[k] for k in
+                                               PARAM_FIELDS]
+
+
+def _rebuild(tensors, step):
+    state = GaussianState(**dict(zip(STATE_FIELDS, tensors)))
+    n = len(STATE_FIELDS)
+    mv = tensors[n:n + 2 * len(PARAM_FIELDS)]
+    opt = SparseAdamState(m=dict(zip(PARAM_FIELDS, mv[:len(PARAM_FIELDS)])),
+                          v=dict(zip(PARAM_FIELDS, mv[len(PARAM_FIELDS):])),
+                          step=step)
+    return state, opt
+
+
+def _window(batch, binned, sky):
+    out = [batch.images, batch.depths, batch.depths_cov, batch.w2cs,
+           batch.global_kf_id, batch.pixel_mask, *binned]
+    if sky is not None:
+        out += [sky[2], *sky[3]]
+    return out
+
+
+def dp_train_loop(group, state, opt, batch, binned_stack, intr4, *, iters,
+                  height, width, kf_schedule, weights=None, lrs=None,
+                  render_kwargs=(), sky=None):
+    """The mapper's train loop over the dp group (JAX's `dp_train_loop`):
+    the leader's arguments as `mapper.train.train_loop` takes them, but
+    kf_schedule is (iters, dp), the window slot each rank renders at each
+    iteration (rank r's slots counted within its own K/dp). The state,
+    moments and sky are replicated, the window, its binning and the sky's
+    are sharded, and the ranks combine their results every iteration as
+    `train_loop(group=...)` says. Updates the leader's state and opt in
+    place and returns (state, opt, metrics) as train_loop does."""
+    k = batch.images.shape[0]
+    _check_divides(k, group.world)
+    sched = [[int(x) for x in row] for row in kf_schedule]
+    if len(sched) != iters or any(len(r) != group.world for r in sched):
+        raise ValueError(f"kf_schedule must be ({iters}, {group.world})")
+    rep = [getattr(state, f) for f in STATE_FIELDS] + _opt_tensors(opt)
+    if sky is not None:
+        rep += [getattr(sky[0], f) for f in STATE_FIELDS] + \
+            _opt_tensors(sky[1])
+    shard = _window(batch, binned_stack, sky)
+    kl = k // group.world
+    static = {"rep_meta": tensor_meta(rep),
+              "shard_meta": tensor_meta([None if t is None else t[:kl]
+                                         for t in shard]),
+              "intr4": tuple(float(x) for x in intr4),
+              "iters": int(iters), "height": int(height),
+              "width": int(width), "schedule": sched,
+              "weights": None if weights is None else dict(weights),
+              "lrs": None if lrs is None else dict(lrs),
+              "render_kwargs": tuple(render_kwargs),
+              "n_valid": int(batch.n_valid), "use_sky": sky is not None,
+              "opt_step": opt.step,
+              "sky_opt_step": None if sky is None else sky[1].step}
+    return group.call("train", static, (rep, shard, state, opt, sky))
+
+
+def _train_body(group, st, payload):
+    if group.rank == 0:
+        rep, shard, state, opt, sky = payload
+    else:
+        rep = shard = None
+    rep = group.replicate(rep, st["rep_meta"])
+    loc = group.put_dp(shard, st["shard_meta"])
+    if group.rank != 0:
+        n = len(STATE_FIELDS) + 2 * len(PARAM_FIELDS)
+        state, opt = _rebuild(rep[:n], st["opt_step"])
+        sky = None
+        if st["use_sky"]:
+            sky = _rebuild(rep[n:], st["sky_opt_step"])
+    nb = len(BinnedScene._fields)
+    batch = KeyframeBatch(*loc[:5], n_valid=st["n_valid"],
+                          pixel_mask=loc[5])
+    binned = BinnedScene(*loc[6:6 + nb])
+    lsky = None
+    if st["use_sky"]:
+        lsky = (sky[0], sky[1], loc[6 + nb], BinnedScene(*loc[7 + nb:]))
+    _, _, metrics = train_loop(
+        state, opt, batch, binned, st["intr4"], iters=st["iters"],
+        height=st["height"], width=st["width"],
+        kf_schedule=[row[group.rank] for row in st["schedule"]],
+        weights=st["weights"], lrs=st["lrs"],
+        render_kwargs=st["render_kwargs"], sky=lsky, group=group)
+    out = [getattr(state, f) for f in STATE_FIELDS] + _opt_tensors(opt) \
+        + [torch.tensor(opt.step)]
+    if lsky is not None:
+        out += [getattr(sky[0], f) for f in STATE_FIELDS] + \
+            _opt_tensors(sky[1]) + [torch.tensor(sky[1].step)]
+    return (state, opt, metrics), out + list(metrics.values())
+
+
+# ---- the dp tile step (JAX's sharded_tile_* and sharded_train_step) --------
+def _tile_call(group, state, opt, images, depths, covs, w2cs, intr4, *,
+               height, width, p_cap, chunk, step):
+    k = images.shape[0]
+    _check_divides(k, group.world)
+    rep = [getattr(state, f) for f in PARAM_FIELDS + ("alive", "stable")]
+    if step:
+        rep += _opt_tensors(opt)
+    shard = [images, depths, covs, w2cs]
+    kl = k // group.world
+    static = {"rep_meta": tensor_meta(rep),
+              "shard_meta": tensor_meta([t[:kl] for t in shard]),
+              "intr4": tuple(float(x) for x in intr4),
+              "height": int(height), "width": int(width),
+              "p_cap": int(p_cap), "chunk": int(chunk), "step": step,
+              "opt_step": opt.step}
+    return group.call("tile", static, (rep, shard, state, opt))
+
+
+def _local_tile_grads(params, alive, images, depths, covs, w2cs, intr4,
+                      height, width, p_cap, chunk):
+    """Gradients of the mean mapper loss over this rank's keyframes, each
+    rendered through its own binning; (grads, visibility, loss)."""
+    params = {k: p.detach().requires_grad_() for k, p in params.items()}
+    totals, vis = [], None
+    for i in range(images.shape[0]):
+        cam = make_camera(w2cs[i], intr4, height, width)
+        rets = render(params["xyz"], params["log_scale"], params["quat"],
+                      params["logit_opacity"], params["rgb"], cam,
+                      alive=alive, p_cap=p_cap, chunk=chunk)
+        total, _ = mapper_loss(rets, images[i], depths[i], covs[i], cam)
+        totals.append(total)
+        vis = rets["visible"] if vis is None else vis | rets["visible"]
+    loss = torch.stack(totals).mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(zip(params, grads)), vis, loss.detach()
+
+
+def _tile_body(group, st, payload):
+    if group.rank == 0:
+        rep, shard, state, opt = payload
+    else:
+        rep = shard = None
+    rep = group.replicate(rep, st["rep_meta"])
+    images, depths, covs, w2cs = group.put_dp(shard, st["shard_meta"])
+    fields = PARAM_FIELDS + ("alive", "stable")
+    geom = dict(zip(fields, rep[:len(fields)]))
+    grads, vis, loss = _local_tile_grads(
+        {k: geom[k] for k in PARAM_FIELDS}, geom["alive"], images, depths,
+        covs, w2cs, st["intr4"], st["height"], st["width"], st["p_cap"],
+        st["chunk"])
+    # pmean of the gradients and the loss, OR of the visibility: one SUM
+    flat = torch.cat([g.reshape(-1) for g in grads.values()]
+                     + [loss.reshape(1), vis.to(torch.float32)])
+    flat = group.all_reduce(flat, "sum")
+    out, off = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[off:off + g.numel()].view(g.shape) / group.world
+        off += g.numel()
+    loss = flat[off] / group.world
+    vis = flat[off + 1:] > 0
+    if not st["step"]:
+        return (out, vis, loss), [*out.values(), vis, loss]
+    if group.rank != 0:
+        state = SimpleNamespace(params=lambda: {k: geom[k]
+                                                for k in PARAM_FIELDS})
+        mv = rep[len(fields):]
+        opt = SparseAdamState(m=dict(zip(PARAM_FIELDS, mv[:5])),
+                              v=dict(zip(PARAM_FIELDS, mv[5:])),
+                              step=st["opt_step"])
+    sparse_adam_step(state, out, opt, vis & geom["alive"] & ~geom["stable"])
+    tensors = list(state.params().values()) + _opt_tensors(opt)
+    return (state, opt, loss), tensors + [loss]
+
+
+def sharded_tile_grads(group, state, opt, images, depths, covs, w2cs, intr4,
+                       *, height, width, p_cap=4096, chunk=128):
+    """Gradients, visibility and loss of the dp tile step (JAX's
+    `sharded_tile_grads`): each rank renders its K/dp keyframes, takes the
+    gradient of its local mean loss, and the ranks average the gradients
+    and the loss and OR the visibility. Every rank gets the same."""
+    return _tile_call(group, state, opt, images, depths, covs, w2cs, intr4,
+                      height=height, width=width, p_cap=p_cap, chunk=chunk,
+                      step=False)
+
+
+def sharded_tile_train_step(group, state, opt, images, depths, covs, w2cs,
+                            intr4, *, height, width, p_cap=4096, chunk=128):
+    """`sharded_tile_grads` followed by the masked sparse-Adam step on
+    visible, alive, unstable rows, on every rank (JAX's
+    `sharded_tile_train_step`); updates the leader's state and opt in
+    place and returns (state, opt, loss)."""
+    return _tile_call(group, state, opt, images, depths, covs, w2cs, intr4,
+                      height=height, width=width, p_cap=p_cap, chunk=chunk,
+                      step=True)
+
+
+def sharded_train_step(state, opt, images, depths, covs, w2cs, intr4, *,
+                       height, width, group=None):
+    """JAX's naive-render `sharded_train_step` (p_cap 4096, chunk 64). The
+    port has one render path, the tile kernels, so this is the tile step
+    at those sizes; without a group it runs every keyframe here."""
+    if group is not None:
+        return sharded_tile_train_step(group, state, opt, images, depths,
+                                       covs, w2cs, intr4, height=height,
+                                       width=width, p_cap=4096, chunk=64)
+    grads, vis, loss = _local_tile_grads(
+        state.params(), state.alive, images, depths, covs, w2cs, intr4,
+        height, width, 4096, 64)
+    sparse_adam_step(state, grads, opt, vis & state.alive & ~state.stable)
+    return state, opt, loss
+
+
+BODIES = {"bin": _bin_body, "train": _train_body, "tile": _tile_body}

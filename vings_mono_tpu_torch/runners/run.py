@@ -27,9 +27,11 @@ frame becomes its `depth`, stage `metric`), and in the mapper `use_sky`,
 `training_args.coarse_frac`. `--checkpoint-every N` saves the session to
 `<save_dir>/session` before every N-th frame (stage `checkpoint`);
 `--resume DIR` loads a session of either package and carries on at the
-frame its keyframe count names. `check_ported` raises NotImplementedError
-for an unknown `mode` and for `parallel.dp`, which has no counterpart on
-one card.
+frame its keyframe count names. `parallel: {dp: N}` trains the map on N
+ranks, one process each (`parallel/mesh.py`); the mapper stops them when
+the run ends, however it ends. `check_ported` raises NotImplementedError
+for an unknown `mode` and for `parallel.sp` > 1 (image rows sharded within
+a keyframe), which the port lacks.
 """
 
 from __future__ import annotations
@@ -50,8 +52,9 @@ def check_ported(cfg):
         raise NotImplementedError(
             f"mode: {cfg.get('mode')} is not ported yet (ported: "
             f"{', '.join(MODES)})")
-    if int((cfg.get("parallel") or {}).get("dp", 1)) > 1:
-        raise NotImplementedError("parallel.dp is not ported yet")
+    if int((cfg.get("parallel") or {}).get("sp", 1)) > 1:
+        from ..parallel.mesh import SP_TODO
+        raise NotImplementedError(f"parallel.sp > 1: {SP_TODO}")
 
 
 def build_tracker(cfg, dataset, device=None):
@@ -91,6 +94,15 @@ def build(cfg, device=None):
     dataset = get_dataset(cfg)
     tracker = build_tracker(cfg, dataset, device)
     mapper = GaussianMapper(cfg, device=device)
+    try:
+        return (dataset, tracker, mapper) + _build_options(cfg, tracker,
+                                                           mapper)
+    except BaseException:
+        mapper.close()
+        raise
+
+
+def _build_options(cfg, tracker, mapper):
     storage = None
     if cfg.get("use_storage_manager"):
         from ..storage.manager import StorageManager
@@ -106,7 +118,7 @@ def build(cfg, device=None):
     if cfg.get("use_metric"):
         from ..models.metric_depth import MetricDepth
         metric = MetricDepth(cfg, device=tracker.device)
-    return dataset, tracker, mapper, storage, looper, dynamic, metric
+    return storage, looper, dynamic, metric
 
 
 def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
@@ -132,68 +144,71 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     check_ported(cfg)
     dataset, tracker, mapper, storage, looper, dynamic, metric = build(
         cfg, device=device)
-    every = int(cfg["storage_manager"]["every"]) if storage else 0
-    lcfg = cfg.get("looper") or {}
-    inertial = tracker.frontend.inertial
-    if resume:
-        load_session(resume, tracker, mapper, inertial)
-        start_frame = max(start_frame, len(tracker.video.tstamps_host)
-                          + tracker.video.count_save)
+    try:
+        every = int(cfg["storage_manager"]["every"]) if storage else 0
+        lcfg = cfg.get("looper") or {}
+        inertial = tracker.frontend.inertial
+        if resume:
+            load_session(resume, tracker, mapper, inertial)
+            start_frame = max(start_frame, len(tracker.video.tstamps_host)
+                              + tracker.video.count_save)
 
-    timer = StageTimer(sync_device=tracker.device if sync_timer else None)
-    n = len(dataset) if max_frames is None else min(len(dataset),
-                                                    max_frames)
-    kf_count = 0
-    for idx in range(start_frame, n):
-        if checkpoint_every and idx and idx % checkpoint_every == 0:
-            with timer("checkpoint"):
-                save_session(os.path.join(save_dir, "session"), tracker,
-                             mapper, inertial)
-        pkt = dataset[idx]
-        if metric is not None:
-            with timer("metric"):
-                pkt["depth"] = metric.predict(pkt["rgb"], pkt["intrinsic"])
-        with timer("track"):
-            tracker.track(pkt)
-        with timer("package"):
-            viz_out = judge_and_package(tracker, cfg)
-        if viz_out is not None:
-            if dynamic is not None:
-                with timer("dynamic"):
-                    viz_out = dynamic.apply_to_viz_out(viz_out, mapper)
-            with timer("map"):
-                mapper.run(viz_out)
-            if cfg.get("use_refine") and mapper.refined_poses is not None:
-                retrieve_to_tracker(viz_out, mapper.refined_poses, tracker)
-            kf_count += 1
-            if looper is not None and kf_count > lcfg["start_after"] and \
-                    kf_count % lcfg["every"] == 0:
-                with timer("loop"):
-                    looper.run(mapper, tracker, viz_out, idx)
-        if storage is not None and idx % every == every - 1:
-            with timer("storage"):
-                storage.run(tracker, mapper, viz_out)
-        if cfg.get("use_vis") and viz_out is not None:
-            with timer("vis"):
-                _save_vis(cfg, save_dir, tracker, mapper, storage, viz_out,
-                          kf_count)
-        if on_frame is not None:
-            on_frame(idx, tracker, mapper, viz_out)
+        timer = StageTimer(sync_device=tracker.device if sync_timer else None)
+        n = len(dataset) if max_frames is None else min(len(dataset),
+                                                        max_frames)
+        kf_count = 0
+        for idx in range(start_frame, n):
+            if checkpoint_every and idx and idx % checkpoint_every == 0:
+                with timer("checkpoint"):
+                    save_session(os.path.join(save_dir, "session"), tracker,
+                                 mapper, inertial)
+            pkt = dataset[idx]
+            if metric is not None:
+                with timer("metric"):
+                    pkt["depth"] = metric.predict(pkt["rgb"], pkt["intrinsic"])
+            with timer("track"):
+                tracker.track(pkt)
+            with timer("package"):
+                viz_out = judge_and_package(tracker, cfg)
+            if viz_out is not None:
+                if dynamic is not None:
+                    with timer("dynamic"):
+                        viz_out = dynamic.apply_to_viz_out(viz_out, mapper)
+                with timer("map"):
+                    mapper.run(viz_out)
+                if cfg.get("use_refine") and mapper.refined_poses is not None:
+                    retrieve_to_tracker(viz_out, mapper.refined_poses, tracker)
+                kf_count += 1
+                if looper is not None and kf_count > lcfg["start_after"] and \
+                        kf_count % lcfg["every"] == 0:
+                    with timer("loop"):
+                        looper.run(mapper, tracker, viz_out, idx)
+            if storage is not None and idx % every == every - 1:
+                with timer("storage"):
+                    storage.run(tracker, mapper, viz_out)
+            if cfg.get("use_vis") and viz_out is not None:
+                with timer("vis"):
+                    _save_vis(cfg, save_dir, tracker, mapper, storage, viz_out,
+                              kf_count)
+            if on_frame is not None:
+                on_frame(idx, tracker, mapper, viz_out)
 
-    if cfg.get("use_global_ba"):
-        # terminate pass: full-trajectory BA removes the online drift the
-        # sliding window could not; accepted closures anchor it
-        from ..tracker.backend import GlobalBA
-        loop_pairs = [(t["cand_gid"], t["cur_gid"])
-                      for t in looper.loop_traces
-                      if "rejected" not in t] if looper is not None else []
-        with timer("global_ba"):
-            stats = GlobalBA(tracker, cfg, extra_edges=loop_pairs).run()
-        print(f"global BA: {stats}")
-    save_trajectory(tracker, save_dir)
-    os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
-    mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
-    return tracker, mapper, timer
+        if cfg.get("use_global_ba"):
+            # terminate pass: full-trajectory BA removes the online drift the
+            # sliding window could not; accepted closures anchor it
+            from ..tracker.backend import GlobalBA
+            loop_pairs = [(t["cand_gid"], t["cur_gid"])
+                          for t in looper.loop_traces
+                          if "rejected" not in t] if looper is not None else []
+            with timer("global_ba"):
+                stats = GlobalBA(tracker, cfg, extra_edges=loop_pairs).run()
+            print(f"global BA: {stats}")
+        save_trajectory(tracker, save_dir)
+        os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
+        mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
+        return tracker, mapper, timer
+    finally:
+        mapper.close()
 
 
 def _save_vis(cfg, save_dir, tracker, mapper, storage, viz_out, kf_count):

@@ -25,6 +25,14 @@ def run(cfg, save_dir, max_windows=None, device=None):
 
     dataset = ReplayDataset(cfg)
     mapper = GaussianMapper(cfg, device=device)
+    try:
+        records = _map_windows(dataset, mapper, save_dir, max_windows)
+    finally:
+        mapper.close()
+    return mapper, records
+
+
+def _map_windows(dataset, mapper, save_dir, max_windows):
     n = len(dataset) if max_windows is None else min(len(dataset),
                                                      max_windows)
     os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
@@ -57,7 +65,7 @@ def run(cfg, save_dir, max_windows=None, device=None):
     mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
     print(f"mapped {n} windows, {mapper.n_alive} gaussians, "
           f"last metrics: {mapper.last_metrics}")
-    return mapper, records
+    return records
 
 
 def main(argv=None):

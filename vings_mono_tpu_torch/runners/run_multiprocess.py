@@ -116,18 +116,23 @@ def tracking_worker(cfg, q, save_dir, max_frames, device, stats, stop):
 def mapping_worker(cfg, q, save_dir, device, stats):
     """Hand every queued window to the mapper until the None sentinel
     (counted in `stats` as mapped; the mapper trains on those that bring
-    a new keyframe); writes the final .ply. Returns the mapper."""
+    a new keyframe); writes the final .ply. Returns the mapper. With
+    `parallel.dp` > 1 this thread leads the dp group, which it closes
+    however it ends."""
     from ..mapper.mapper import GaussianMapper
     stats["mapped"] = 0
     mapper = GaussianMapper(cfg, device=device)
-    while True:
-        viz_out = q.get()
-        if viz_out is None:
-            break
-        mapper.run(viz_out)
-        stats["mapped"] += 1
-    os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
-    mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
+    try:
+        while True:
+            viz_out = q.get()
+            if viz_out is None:
+                break
+            mapper.run(viz_out)
+            stats["mapped"] += 1
+        os.makedirs(os.path.join(save_dir, "ply"), exist_ok=True)
+        mapper.save_ply(os.path.join(save_dir, "ply", "final_2dgs.ply"))
+    finally:
+        mapper.close()
     return mapper
 
 

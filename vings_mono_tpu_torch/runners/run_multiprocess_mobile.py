@@ -83,15 +83,18 @@ def mapping_worker(cfg, t2m, m2s, device, stats):
     from ..mapper.mapper import GaussianMapper
     stats["mapped"] = 0
     mapper = GaussianMapper(cfg, device=device)
-    while True:
-        viz = t2m.get()
-        if viz is None:
-            break
-        mapper.run(viz)
-        stats["mapped"] += 1
-        w2c = np.linalg.inv(np.asarray(viz["poses"][-1]))
-        rets = mapper.render_at(w2c, viz["intrinsic"])
-        put_latest(m2s, rets["rgb"].movedim(0, -1).cpu().numpy())
+    try:
+        while True:
+            viz = t2m.get()
+            if viz is None:
+                break
+            mapper.run(viz)
+            stats["mapped"] += 1
+            w2c = np.linalg.inv(np.asarray(viz["poses"][-1]))
+            rets = mapper.render_at(w2c, viz["intrinsic"])
+            put_latest(m2s, rets["rgb"].movedim(0, -1).cpu().numpy())
+    finally:
+        mapper.close()   # the dp group, with parallel.dp > 1
     return mapper
 
 
