@@ -103,7 +103,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      spread); and `--resume` from the frame-20 session to frame 30 (load
      ms, keyframe count, pose gap to the first run);
  15. the slice's main path: the image-folder datasets, the remaining
-     runners and the trainer. (a) A `kitti_sync` folder of 60 frames of
+     runners and the trainer. (a) A `kitti_sync` folder of 40 frames of
      the synthetic3d room rendered at 370x1226 with KITTI-0028's
      intrinsics (image_02/data, metadata/camstamp.txt at 10 Hz,
      metadata/imu.txt from the room's analytic IMU at 100 Hz written
@@ -132,9 +132,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      (b) phase 4's replay through GaussianMapper with `parallel`, the
      ranks' state digests compared after every call: ms per keyframe and
      the collectives' host ms per iteration beside phase 4's, PSNR, peak
-     memory and launches per rank; (c) smoke.yaml through
-     `runners.run.run` with the same block: frames/s, ATE, PSNR beside
-     phase 12's, and no child process left when run returns.
+     memory and launches per rank; (c) smoke.yaml's first 20 frames
+     through `runners.run.run` with the same block: frames/s, ATE, PSNR
+     beside phase 12's, and no child process left when run returns;
+ 17. the mesh's sp row split and `mapper.impl: naive`: (a)
+     `parallel.mesh.sharded_train_step(impl="tile")` at (dp, sp) = (1, 2),
+     two ranks on cuda:0 over Gloo, on 16a's scene at 240x800 against
+     the whole-image step (loss, visibility, gradients through
+     `sharded_tile_grads`), ms per step at sp 2 and sp 1, the collectives'
+     host ms, peak memory and launches per rank, both kernels against
+     their twins on rank 1's band; (b) (dp, sp) = (2, 2), four ranks, on
+     __graft_entry__.py's dryrun scene (32x32, K = 4) for naive and tile
+     against the whole-image step; (c) GaussianMapper with `mapper.impl:
+     naive` on three windows at 48x80, card against CPU per keyframe, no
+     tile kernel launched.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`).
 The second-to-last line is the card's name and power limit, the last line
@@ -3076,7 +3087,7 @@ def metric_session_phase(args, tk):
 # phase 15: the image-folder datasets, the threaded runners, the trainer
 # ---------------------------------------------------------------------------
 
-KITTI_FRAMES = 60           # frames of the written kitti_sync folder
+KITTI_FRAMES = 40           # frames of the written kitti_sync folder
 KITTI_DT = 0.1              # KITTI's 10 Hz camera
 MOBILE_FRAMES = 20          # frames fed to the mobile workers
 TRAIN_STEPS = 20            # steps of the trainer's loop
@@ -3496,6 +3507,7 @@ DP_LOSS_REL = 1e-5
 # card against the CPU plain path, of each tensor's largest: the kernel's
 # bf16 per-pair gradients against the twin's, phase 3's bf16 tolerance
 DP_CPU_GRAD = BWD_TOL["bf16"]
+DP_SMOKE_FRAMES = 20        # 16c: smoke.yaml's first 20 of its 30 frames
 
 
 def child_pids():
@@ -3591,7 +3603,7 @@ def dp_grads_phase(args, tk, group, label):
     torch.cuda.synchronize()
     dp2_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    g1, v1, l1 = mesh._local_tile_grads(st.params(), st.alive, *batch,
+    g1, v1, l1 = mesh.local_grads(st.params(), st.alive, *batch,
                                         intr4, H, W, DP_P_CAP, DP_CHUNK)
     torch.cuda.synchronize()
     dp1_ms = (time.perf_counter() - t0) * 1e3
@@ -3615,7 +3627,7 @@ def dp_grads_phase(args, tk, group, label):
         f: getattr(st, f).cpu() for f in ("xyz", "rgb", "log_scale", "quat",
                                           "logit_opacity", "alive")})
     t0 = time.perf_counter()
-    gc, vc, lc = mesh._local_tile_grads(
+    gc, vc, lc = mesh.local_grads(
         cpu_st.params(), cpu_st.alive, *[x.cpu() for x in sub], intr4, H, W,
         DP_P_CAP, DP_CHUNK)
     cpu_s = time.perf_counter() - t0
@@ -3697,6 +3709,7 @@ def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
     cfg = load_config(str(SMOKE), overrides={
         "output": {"save_dir": str(save_dir)},
         "device": {"tracker": DEVICE, "mapper": DEVICE},
+        "dataset": {"n_frames": DP_SMOKE_FRAMES},
         "parallel": parallel})
     tk.rasterize_forward.launches = 0
     tk.rasterize_backward.launches = 0
@@ -3778,6 +3791,283 @@ def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
     launches = dp_smoke_phase(args, tk, smoke_stats, DP_GLOO, "gloo")
     print(f"phase 16 in {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches, [max(e[0] for e in errs), max(e[1] for e in errs)]
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the mesh's sp row split, and mapper.impl: naive
+# ---------------------------------------------------------------------------
+
+SP_LOSS_REL = 1e-6          # sp 2 against the whole-image step at 240x800
+SP_SMALL_LOSS_REL = 1e-5    # 17b, as tests/test_torch_sp.py
+SP_STEPS = 3                # timed steps at each of sp 2 and sp 1
+NAIVE_SUB = (5, 10)         # 17c: every 5th row and 10th column: 48x80
+NAIVE_MAPPER = {"capacity": 2048, "pair_capacity": 4096, "chunk": 64,
+                "kf_capacity": 4, "points_first_frame": 512,
+                "points_per_frame": 256, "visible_capacity": 0,
+                "impl": "naive"}
+
+
+def rank_device():
+    """The one card every rank of phase 17 shares."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def launches_of(tk, group):
+    """{rank: {kernel: launches}} since the counters were last zeroed:
+    rank 0's counters and the followers' reports."""
+    out = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
+                                                tk.rasterize_backward)}}
+    out.update(group.launches)
+    return out
+
+
+def zero_launches(tk, group):
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    group.launches = {}
+
+
+def sp_full_phase(args, tk):
+    """17a: the tile step at sp 2 (two ranks on cuda:0 over Gloo) on phase
+    16a's scene at 240x800, against the whole-image step; both kernels
+    against their plain twins on rank 1's band. Returns the launches of
+    the sp 2 steps summed over the ranks and the kernels' largest errors
+    on the band's inputs."""
+    import torch
+    from vings_mono_tpu_torch.parallel import mesh
+    group = mesh.make_mesh(devices=[rank_device()] * 2, dp=1,
+                           backend="gloo")
+    group.verify = True
+    try:
+        check(group.shape == {"dp": 1, "sp": 2}, f"17a: mesh {group.shape}")
+        st, opt, batch, intr4 = dp_scene(DEVICE)
+        kw = dict(height=H, width=W, p_cap=DP_P_CAP, chunk=DP_CHUNK)
+        g2, v2, l2 = mesh.sharded_tile_grads(group, st, opt, *batch, intr4,
+                                             **kw)
+        g1, v1, l1 = mesh.local_grads(st.params(), st.alive, *batch, intr4,
+                                      H, W, DP_P_CAP, DP_CHUNK, "tile", "f32")
+        l1, l2 = float(l1), float(l2)
+        check(abs(l2 - l1) <= SP_LOSS_REL * abs(l1),
+              f"17a: loss {l2} at sp 2, {l1} whole")
+        check(torch.equal(v2, v1), "17a: visibility differs")
+        wg = grads_agree("17a sp 2 vs whole", g2, g1, DP_GRAD_RTOL,
+                         atol=DP_GRAD_ATOL)
+        # the step, the main path of this phase: sp 2, then the whole image
+        st_b, opt_b, _, _ = dp_scene(DEVICE)
+        comm0 = group.comm_s
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(tk, group)
+        ms2 = []
+        for i in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, loss = mesh.sharded_train_step(
+                st, opt, *batch, intr4, impl="tile", group=group, **kw)
+            torch.cuda.synchronize()
+            ms2.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                ls2 = float(loss)
+        ranks = launches_of(tk, group)
+        peak = {0: torch.cuda.max_memory_allocated(), **group.peak_bytes}
+        comm = (group.comm_s - comm0) * 1e3 / SP_STEPS
+        ms1 = []
+        for i in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, loss = mesh.sharded_train_step(
+                st_b, opt_b, *batch, intr4, impl="tile", **kw)
+            torch.cuda.synchronize()
+            ms1.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                ls1 = float(loss)
+        check(abs(ls2 - ls1) <= SP_LOSS_REL * abs(ls1),
+              f"17a: first step's loss {ls2} at sp 2, {ls1} with no group")
+        check(bool(torch.isfinite(st.xyz).all()), "17a: xyz not finite")
+        print(f"phase 17a sharded_train_step(impl=tile) [{nvidia_smi()}] at "
+              f"{H}x{W} ({DP_SURFELS} surfels, K = {DP_K}, p_cap "
+              f"{DP_P_CAP}), (dp, sp) = (1, 2), two ranks on cuda:0 over "
+              f"Gloo, bands {mesh.row_bands(H, 2)}: loss {l2:.7f} (whole "
+              f"{l1:.7f}), {int(v2.sum())} visible, gradients sp 2 vs whole "
+              f"(f32 pair reduction) within {wg:.3e} of rtol "
+              f"{DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}; first step loss "
+              f"{ls2:.7f} (no group {ls1:.7f}); ms per step sp 2 "
+              f"{[round(x, 1) for x in ms2]}, sp 1 (no group, bf16 pair "
+              f"reduction) {[round(x, 1) for x in ms1]}; collectives "
+              f"{comm:.1f} ms per step on rank 0's host clock; peak memory "
+              f"per rank { {r: round(b / 1e9, 3) for r, b in peak.items()} }"
+              f" GB; launches per rank {ranks}", flush=True)
+        for r, counts in ranks.items():
+            for name, n in counts.items():
+                check(n >= SP_STEPS * DP_K, f"17a: rank {r} launched {name} "
+                      f"{n} times in {SP_STEPS} steps")
+        # both kernels on rank 1's band: rows 128..239 and the halo from 112
+        r0, r1, h0, h1 = mesh.row_bands(H, 2)[1]
+        band = {"fu": intr4[1], "fv": intr4[0], "cu": intr4[3] - h0,
+                "cv": intr4[2], "H": h1 - h0, "W": W}
+        pd, binned, meta = pair_inputs(st, batch[3][0], {
+            "p_cap": DP_P_CAP, "chunk": DP_CHUNK}, DEVICE, intrinsic=band)
+        check(not bool(binned.overflow), f"17a: {int(binned.n_pairs)} pairs "
+              f"overflow p_cap {DP_P_CAP}")
+        fwd, bwd, *_ = check_kernels(
+            f"17a rank 1's band, rows {h0}..{h1 - 1}", pd,
+            binned.tile_chunks, meta, DP_CHUNK, args.seed + 70,
+            int(binned.n_pairs))
+    finally:
+        group.close()
+    check_no_children("phase 17a", group)
+    return ({name: sum(c[name] for c in ranks.values()) for name in ranks[0]},
+            (fwd, bwd["f32"]))
+
+
+def sp_grid_phase(tk):
+    """17b: (dp, sp) = (2, 2), four ranks on cuda:0 over Gloo, on
+    __graft_entry__.py's dryrun scene (32x32, 256 surfels, K = 4), naive
+    and tile, against the whole-image step in this process."""
+    import torch
+    from vings_mono_tpu_torch.mapper.state import adam_init, empty_state
+    from vings_mono_tpu_torch.parallel import mesh
+    h = w = 32
+    rng = np.random.default_rng(0)
+    st = empty_state(1024, DEVICE)
+    n = 256
+    z = rng.uniform(2.0, 6.0, size=n).astype(np.float32)
+    xyz = np.stack([(rng.uniform(0, 1, n) - 0.5) * z,
+                    (rng.uniform(0, 1, n) - 0.5) * z, z], -1)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    st.xyz[:n] = torch.as_tensor(xyz, **f32)
+    st.rgb[:n] = torch.as_tensor(rng.uniform(0, 1, (n, 3)), **f32)
+    st.log_scale[:n] = -1.5
+    st.logit_opacity[:n] = 1.0
+    st.alive[:n] = True
+    k = 4
+    batch = [torch.as_tensor(rng.uniform(0, 1, (k, 3, h, w)), **f32),
+             torch.as_tensor(rng.uniform(2, 6, (k, 1, h, w)), **f32),
+             torch.full((k, 1, h, w), 0.01, **f32),
+             torch.eye(4, **f32).repeat(k, 1, 1)]
+    intr4 = (30.0, 30.0, w / 2, h / 2)
+    group = mesh.make_mesh(devices=[rank_device()] * 4, dp=2,
+                           backend="gloo")
+    group.verify = True
+    try:
+        check(group.shape == {"dp": 2, "sp": 2}, f"17b: mesh {group.shape}")
+        for impl in ("naive", "tile"):
+            opt = adam_init(st)
+            g2, v2, l2 = mesh.sharded_grads(group, st, opt, *batch, intr4,
+                                            height=h, width=w, impl=impl)
+            g1, v1, l1 = mesh.local_grads(st.params(), st.alive, *batch,
+                                          intr4, h, w, 4096, 128, impl,
+                                          "f32")
+            l1, l2 = float(l1), float(l2)
+            check(abs(l2 - l1) <= SP_SMALL_LOSS_REL * abs(l1),
+                  f"17b {impl}: loss {l2} on the mesh, {l1} whole")
+            check(torch.equal(v2, v1), f"17b {impl}: visibility differs")
+            wg = grads_agree(f"17b {impl}", g2, g1, DP_GRAD_RTOL,
+                             atol=DP_GRAD_ATOL)
+            s2 = dataclasses.replace(st, **{
+                f: getattr(st, f).clone() for f in ("xyz", "rgb",
+                                                    "log_scale", "quat",
+                                                    "logit_opacity")})
+            zero_launches(tk, group)
+            _, _, loss = mesh.sharded_train_step(
+                s2, opt, *batch, intr4, height=h, width=w, impl=impl,
+                group=group)
+            ranks = launches_of(tk, group)
+            print(f"phase 17b (dp, sp) = (2, 2) on cuda:0 x 4 over Gloo, "
+                  f"impl {impl}, {h}x{w}, K = {k}: loss {l2:.7f} (whole "
+                  f"{l1:.7f}), step loss {float(loss):.7f}, gradients within "
+                  f"{wg:.3e} of rtol {DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}, "
+                  f"launches per rank {ranks}", flush=True)
+            check(opt.step == 1 and bool(torch.isfinite(s2.xyz).all()),
+                  f"17b {impl}: the step did not run")
+            want_launches = impl == "tile"
+            for r, counts in ranks.items():
+                for name, cnt in counts.items():
+                    check((cnt > 0) == want_launches, f"17b {impl}: rank {r} "
+                          f"launched {name} {cnt} times")
+    finally:
+        group.close()
+    check_no_children("phase 17b", group)
+
+
+def naive_windows():
+    """Three viz_out windows of render_view's road at 48x80 (every 5th row
+    and 10th column of 240x800): keyframes 0-1, then 0-2, then 0-3."""
+    sy, sx = NAIVE_SUB
+    views = [render_view(0.5 * i) for i in range(4)]
+    intr = {"fu": INTRINSIC["fu"] / sy, "fv": INTRINSIC["fv"] / sx,
+            "cu": INTRINSIC["cu"] / sy, "cv": INTRINSIC["cv"] / sx,
+            "H": H // sy, "W": W // sx}
+    out = []
+    for last in (1, 2, 3):
+        ks = list(range(last + 1))
+        poses = np.tile(np.eye(4, dtype=np.float32), (len(ks), 1, 1))
+        poses[:, 2, 3] = 0.5 * np.asarray(ks)
+        out.append({
+            "images": np.stack([views[k][0][::sy, ::sx] for k in ks]),
+            "depths": np.stack([views[k][1][::sy, ::sx] for k in ks]),
+            "depths_cov": np.full((len(ks), H // sy, W // sx, 1), 0.01,
+                                  np.float32),
+            "poses": poses, "intrinsic": intr,
+            "viz_out_idx_to_f_idx": np.asarray(ks, np.float64) * 5,
+            "global_kf_id": np.asarray(ks, np.int64)})
+    return out
+
+
+def naive_mapper_phase(tk):
+    """17c: GaussianMapper with mapper.impl naive on the card against the
+    same on the CPU, per keyframe (tests/test_torch_slice.py's tolerances:
+    Gaussians 1 %, loss 1 %, PSNR 0.1 dB); no tile kernel launches."""
+    import torch
+    from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
+    from vings_mono_tpu_torch.utils.config import load_config
+    cfg = load_config(overrides={"mapper": NAIVE_MAPPER,
+                                 "training_args": {"iters": 10}})
+    zero = {k: k.launches for k in (tk.rasterize_forward,
+                                    tk.rasterize_backward)}
+    mappers = {d: GaussianMapper(cfg, device=d) for d in (DEVICE, "cpu")}
+    secs = {d: 0.0 for d in mappers}
+    for i, viz in enumerate(naive_windows()):
+        row = {}
+        for d, m in mappers.items():
+            t0 = time.perf_counter()
+            m.run(viz)
+            if d == DEVICE:
+                torch.cuda.synchronize()
+            secs[d] += time.perf_counter() - t0
+            row[d] = (m.n_alive, m.last_metrics)
+        (na, ma), (nb, mb) = row[DEVICE], row["cpu"]
+        print(f"phase 17c keyframe {i} (impl naive, {viz['intrinsic']['H']}"
+              f"x{viz['intrinsic']['W']}): card n_alive {na} loss "
+              f"{ma['total']:.6f} psnr {ma['psnr']:.4f}; CPU n_alive {nb} "
+              f"loss {mb['total']:.6f} psnr {mb['psnr']:.4f}", flush=True)
+        check(nb > 100 and abs(na - nb) <= 0.01 * nb,
+              f"17c: n_alive {na} on the card, {nb} on the CPU")
+        check(abs(ma["total"] - mb["total"]) <= 0.01 * abs(mb["total"]),
+              f"17c: loss {ma['total']} on the card, {mb['total']} on CPU")
+        check(abs(ma["psnr"] - mb["psnr"]) <= 0.1,
+              f"17c: psnr {ma['psnr']} on the card, {mb['psnr']} on CPU")
+    ran = {k.__name__: k.launches - n for k, n in zero.items()}
+    check(not any(ran.values()), f"17c: tile kernels launched under "
+          f"mapper.impl naive: {ran}")
+    check(not mappers[DEVICE].state.local_scores.any(),
+          "17c: scores moved on the naive path")
+    print(f"phase 17c: card {secs[DEVICE]:.1f} s, CPU {secs['cpu']:.1f} s "
+          f"for 3 keyframes; tile kernel launches {ran}", flush=True)
+
+
+def sp_phase(args, tk):
+    """Phase 17. Returns 17a's launches summed over the ranks and the
+    kernels' largest errors on rank 1's band."""
+    import gc
+    import torch
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, errs = sp_full_phase(args, tk)
+    sp_grid_phase(tk)
+    naive_mapper_phase(tk)
+    print(f"phase 17 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches, errs
 
 
 def nvidia_smi():
@@ -3999,6 +4289,8 @@ def main(argv=None):
     # ---- 16. data parallelism over the keyframe window
     dp_launches, dp_errs = dp_phase(args, tk, cfg, float(np.mean(kf_ms)),
                                     records[-1]["psnr"], smoke_stats)
+    # ---- 17. the mesh's sp row split, and mapper.impl: naive
+    sp_launches, sp_errs = sp_phase(args, tk)
     kernels = []
     for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
             err_800 in (
@@ -4017,6 +4309,7 @@ def main(argv=None):
             "launches_mobile": folder_launches["d"][name],
             "launches_metric_session": metric_launches[name],
             "launches_dp": dp_launches[name],
+            "launches_sp": sp_launches[name],
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -4028,13 +4321,14 @@ def main(argv=None):
             "max_abs_err": err, "max_err_over_scale": err_rel,
             "max_abs_err_metric_session": err_metric,
             "max_abs_err_dp": dp_errs[0 if key == "fwd" else 1],
+            "max_abs_err_sp": sp_errs[0 if key == "fwd" else 1],
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -133,17 +133,17 @@ def mapper_cfg(parallel, **mapper):
 
 @pytest.mark.parametrize("case", ["kf_capacity", "sp", "rank0_device"])
 def test_mapper_refusals(case, monkeypatch):
-    """kf_capacity % dp raises ValueError (JAX asserts), sp > 1 raises
-    NotImplementedError naming ROADMAP.md, and a rank 0 on another device
-    than the mapper's raises ValueError (two cards monkeypatched in); none
-    starts a process."""
+    """kf_capacity % dp raises ValueError (JAX asserts), also beside an sp
+    (the mapper reads parallel.dp alone, as JAX's does), and a rank 0 on
+    another device than the mapper's raises ValueError (two cards
+    monkeypatched in); none starts a process."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     parallel, exc, match = {
         "kf_capacity": ({"dp": 3, "platform": "cpu"}, ValueError,
                         "divide by parallel.dp"),
-        "sp": ({"dp": 2, "sp": 2, "platform": "cpu"}, NotImplementedError,
-               "ROADMAP.md"),
+        "sp": ({"dp": 3, "sp": 2, "platform": "cpu"}, ValueError,
+               "divide by parallel.dp 3"),
         "rank0_device": ({"dp": 2}, ValueError, "rank 0"),
     }[case]
     with pytest.raises(exc, match=match):
@@ -152,16 +152,19 @@ def test_mapper_refusals(case, monkeypatch):
 
 
 def test_check_ported_accepts_dp():
-    """Every runner's check takes parallel.dp; sp > 1 raises, naming
-    ROADMAP.md; make_mesh's sp axis likewise."""
+    """Every runner's check takes parallel.dp, and parallel.sp beside it
+    (no runner reads sp, in either package); make_mesh's sp axis builds
+    (dp, sp) as JAX's does (tests/test_torch_sp.py runs it)."""
     base = load_config()
     run_t.check_ported(dict(base, parallel={"dp": 4}))
     run_t.check_ported(dict(base, parallel={"dp": 2, "platform": "cpu",
                                             "backend": "gloo"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_t.check_ported(dict(base, parallel={"dp": 2, "sp": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mesh.make_mesh(devices=["cpu"] * 8)     # dp 4, sp 2 as in JAX
+    run_t.check_ported(dict(base, parallel={"dp": 2, "sp": 2}))
+    g = mesh.make_mesh(devices=["cpu"] * 2, dp=1)
+    try:
+        assert g.shape == {"dp": 1, "sp": 2}
+    finally:
+        g.close()
     assert no_children()
 
 
@@ -349,7 +352,7 @@ def test_sharded_tile_grads_matches_jax(cpu_group, cpu_devices):
     st, opt, batch = tile_inputs()
     tg, tv, tl = mesh.sharded_tile_grads(cpu_group, st, opt, *batch, INTR4,
                                          height=H, width=W)
-    g1, v1, l1 = mesh._local_tile_grads(st.params(), st.alive, *batch,
+    g1, v1, l1 = mesh.local_grads(st.params(), st.alive, *batch,
                                         INTR4, H, W, 4096, 128)
     assert abs(float(tl) - float(l1)) <= 1e-5 * abs(float(l1))
     assert torch.equal(tv, v1)
@@ -367,7 +370,7 @@ def test_sharded_tile_grads_matches_jax(cpu_group, cpu_devices):
 
 
 def test_sharded_tile_train_step_replicates(cpu_group):
-    """sharded_tile_train_step and the naive step's counterpart through
+    """sharded_tile_train_step and sharded_train_step(impl="tile") through
     the group: the same loss as the single-process step (1e-6), finite
     parameters, and the followers' parameters and moments bitwise equal
     to the leader's (`verify`)."""
@@ -378,10 +381,10 @@ def test_sharded_tile_train_step_replicates(cpu_group):
     assert opt.step == 1 and torch.isfinite(st.xyz).all()
     st2, opt2, _ = tile_inputs()
     _, _, l2 = mesh.sharded_train_step(st2, opt2, *batch, INTR4, height=H,
-                                       width=W, group=cpu_group)
+                                       width=W, impl="tile", group=cpu_group)
     st3, opt3, _ = tile_inputs()
     _, _, l3 = mesh.sharded_train_step(st3, opt3, *batch, INTR4, height=H,
-                                       width=W)
+                                       width=W, impl="tile")
     assert abs(float(l2) - float(l3)) <= 1e-6 * abs(float(l3))
     assert abs(float(loss) - float(l3)) <= 1e-5 * abs(float(l3))
     assert cpu_group.calls == calls + 2

@@ -154,9 +154,10 @@ def test_check_ported_accepts_and_refuses(config):
     """`check_ported` accepts smoke_vio.yaml and the KITTI 2011_09_30_drive_
     0028 configuration as committed (use_vis, use_global_ba, storage, vio),
     and the mapper options use_sky, use_refine and coarse_frac, use_loop,
-    use_dynamic and use_metric, and parallel.dp; it still raises, naming
-    it, for parallel.sp > 1 (--resume and --checkpoint-every are run by
-    tests/test_torch_vo_slice.py test_ported_option_runs)."""
+    use_dynamic and use_metric, and parallel.dp and parallel.sp, which the
+    mapper takes as JAX's does: dp alone is read (--resume and
+    --checkpoint-every are run by tests/test_torch_vo_slice.py
+    test_ported_option_runs)."""
     from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
     cfg = load_config(str(config))
     run_t.check_ported(cfg)
@@ -172,11 +173,11 @@ def test_check_ported_accepts_and_refuses(config):
                                                 "coarse_frac": 0.5}),
                             device="cpu")
     assert mapper.sky is not None and mapper.coarse_frac == 0.5
-    # parallel.dp is ported (tests/test_torch_parallel.py); the sp row
-    # split is not
+    # parallel.dp is ported (tests/test_torch_parallel.py); sp is read by
+    # parallel.mesh.sharded_train_step's group alone (tests/test_torch_
+    # sp.py), so the mapper takes it and starts no group at dp = 1
     run_t.check_ported(dict(cfg, parallel={"dp": 2}))
-    with pytest.raises(NotImplementedError, match="parallel.sp"):
-        run_t.check_ported(dict(cfg, parallel={"dp": 2, "sp": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GaussianMapper(dict(small, parallel={"dp": 2, "sp": 2}),
-                       device="cpu")
+    run_t.check_ported(dict(cfg, parallel={"dp": 2, "sp": 2}))
+    sp_only = GaussianMapper(dict(small, parallel={"dp": 1, "sp": 2}),
+                             device="cpu")
+    assert sp_only.dp == 1 and sp_only.group is None

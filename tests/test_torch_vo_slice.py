@@ -240,7 +240,7 @@ def test_resume_starts_at_the_keyframe_count(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["mode_unknown", "dataset", "parallel_dp"])
-def test_unported_option_raises(what, tmp_path):
+def test_unported_option_raises(what, tmp_path, monkeypatch):
     base = {"dataset": {"module": "synthetic", "n_frames": 2},
             "frontend": {"image_size": [32, 32], "buffer": 12,
                          "ba_window": 8},
@@ -252,14 +252,17 @@ def test_unported_option_raises(what, tmp_path):
                          "mode: vio_gnss"),
         "dataset": (dict(base, dataset={"module": "no_such_dataset"}),
                     ModuleNotFoundError, "no_such_dataset"),
-        # parallel.dp is ported; the sp row split is not
+        # parallel.dp and parallel.sp pass the check; dp = 2 on CUDA ranks
+        # that the machine lacks raises: the port does not fall back to
+        # the CPU (JAX does)
         "parallel_dp": (dict(base, parallel={"dp": 2, "sp": 2}),
-                        NotImplementedError, "parallel.sp"),
+                        RuntimeError, "does not fall back"),
     }
     over, exc, match = calls[what]
     if what == "parallel_dp":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         run_vo.check_ported(load_config(overrides=dict(
-            base, parallel={"dp": 2})))
+            base, parallel={"dp": 2, "sp": 2})))
     with pytest.raises(exc, match=match):
         run_vo.run(load_config(overrides=over), str(tmp_path / "run"),
                    device="cpu")

@@ -122,11 +122,12 @@ def add_frame(state: GaussianState, opt: SparseAdamState, w2c, intr4,
     if not first:
         # ONE binning serves both renders: the prune between them only
         # flips `alive`, and killed rows re-project to zero opacity
-        rkw["binned"] = bin_for_camera(
-            state.xyz, state.log_scale, state.quat, state.logit_opacity,
-            state.rgb, camera, alive=state.alive, need_grad=False,
-            **{k: rkw[k] for k in ("p_cap", "chunk", "side", "v_cap",
-                                   "tile_cap") if k in rkw})
+        if rkw.get("impl", "tile") == "tile":
+            rkw["binned"] = bin_for_camera(
+                state.xyz, state.log_scale, state.quat, state.logit_opacity,
+                state.rgb, camera, alive=state.alive, need_grad=False,
+                **{k: rkw[k] for k in ("p_cap", "chunk", "side", "v_cap",
+                                       "tile_cap") if k in rkw})
         rets = render(state.xyz, state.log_scale, state.quat,
                       state.logit_opacity, state.rgb, camera,
                       alive=state.alive, **rkw)

@@ -12,7 +12,15 @@ refinement (`use_refine`) and the coarse-to-fine phase
 each (`parallel/mesh.py`): this process is rank 0 and starts the others;
 binning and both train loops (and the loop-closure retrain) run on every
 rank, each on its K/N slots, against the state the mapper holds here,
-which every call replicates first. `close()` stops the other ranks.
+which every call replicates first. `close()` stops the other ranks. As in
+the JAX package, only `parallel.dp` is read here: `parallel.sp` (image rows
+sharded within a keyframe) belongs to `parallel.mesh.sharded_train_step`.
+
+`mapper.impl` selects the render, as in the JAX package: "tile" (the
+default, the binned tile kernels) or "naive" (every visible Gaussian at
+every pixel, plain PyTorch; no scores flow on that path, as in JAX).
+`mapper.interpret` runs JAX's Pallas kernels interpreted; the port does
+not read it.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ from .state import (STATE_FIELDS, adam_init, empty_state, state_from_numpy,
 from .train import (KeyframeBatch, bin_rows, bin_stack, draw_kf_schedule,
                     half_batch, half_intr4, permute_scatter_binned, pool2x2,
                     stablemask_control, storage_control, train_loop)
-from ..parallel.mesh import (SP_TODO, dp_bin_stack, dp_placement,
-                             dp_train_loop, make_dp_mesh)
+from ..parallel.mesh import (dp_bin_stack, dp_placement, dp_train_loop,
+                             make_dp_mesh)
 from ..ops.rasterizer import render
 
 
@@ -54,8 +62,6 @@ class GaussianMapper:
         self.kf_capacity = int(m["kf_capacity"])
         pcfg = cfg.get("parallel") or {}
         self.dp = int(pcfg.get("dp", 1))
-        if int(pcfg.get("sp", 1)) > 1:
-            raise NotImplementedError(SP_TODO)
         if self.dp < 1 or self.kf_capacity % self.dp:
             raise ValueError(f"mapper.kf_capacity {self.kf_capacity} must "
                              f"divide by parallel.dp {self.dp}")
@@ -76,6 +82,7 @@ class GaussianMapper:
                            # tile: transmittance saturates long before.
                            # 0 = uncapped.
                            "tile_cap": int(m.get("tile_depth_cap", 512))}
+        self.impl = m.get("impl", "tile")
         self.state = empty_state(self.capacity, self.device)
         self.opt = adam_init(self.state)
         self.use_sky = bool(cfg.get("use_sky"))
@@ -153,11 +160,11 @@ class GaussianMapper:
 
     @property
     def render_kwargs(self):
-        return tuple(self.bin_kwargs.items())
+        return tuple(self.bin_kwargs.items()) + (("impl", self.impl),)
 
     @property
     def render_kwargs_c(self):
-        return tuple(self.bin_kwargs_c.items())
+        return tuple(self.bin_kwargs_c.items()) + (("impl", self.impl),)
 
     # ---- random draws (tests replace these to replay another stream) ----
     def _densify_draws(self, n_points):
@@ -486,14 +493,16 @@ class GaussianMapper:
 
     def _sky_args(self, batch, intr4, height, width, bin_kwargs, images):
         """train_loop's `sky` argument: the sphere binned afresh for every
-        window camera (no cache)."""
+        window camera (no cache); not binned with impl naive."""
         if not self.use_sky:
             return None
         st = self.sky.state
-        xyz, log_scale = sky_render_params(st)
-        binned = bin_stack(dataclasses.replace(st, xyz=xyz,
-                                               log_scale=log_scale),
-                           batch, intr4, height, width, **bin_kwargs)
+        binned = None
+        if self.impl == "tile":
+            xyz, log_scale = sky_render_params(st)
+            binned = bin_stack(dataclasses.replace(st, xyz=xyz,
+                                                   log_scale=log_scale),
+                               batch, intr4, height, width, **bin_kwargs)
         return (st, self.sky.opt, images, binned)
 
     # ---- direct window training (loop-closure retrain) -----------------

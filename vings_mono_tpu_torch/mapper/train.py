@@ -143,9 +143,10 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
 
     sky = (sky_state, sky_opt, sky_images (K,3,H,W), sky_binned) trains the
     sky sphere jointly: each iteration also renders the sphere through its
-    cached binning, composites it behind the map, takes the photometric
-    loss over the whole image against sky_images, and steps the sphere's
-    visible rows with their own sparse Adam (in place).
+    cached binning (None with impl naive), composites it behind the map,
+    takes the photometric loss over the whole image against sky_images,
+    and steps the sphere's visible rows with their own sparse Adam (in
+    place).
     """
     rkw = dict(render_kwargs)
     metrics, losses, psnrs = {}, [], []
@@ -169,8 +170,10 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
             sky_state, sky_opt, sky_images, sky_binned = sky
             sky_params = {k: p.detach().requires_grad_()
                           for k, p in sky_state.params().items()}
-            srets = _render_sky_params(sky_params, sky_state.alive, camera,
-                                       _select_kf(sky_binned, kf), rkw)
+            srets = _render_sky_params(
+                sky_params, sky_state.alive, camera,
+                None if sky_binned is None else _select_kf(sky_binned, kf),
+                rkw)
             rets = dict(rets)
             rets["rgb"] = rets["rgb"] + (1.0 - rets["accum"]) * srets["rgb"]
             sky_rgb_gt = sky_images[kf]
@@ -179,9 +182,11 @@ def train_loop(state: GaussianState, opt: SparseAdamState,
                                      batch.depths[kf], batch.depths_cov[kf],
                                      camera, weights, sky_rgb=sky_rgb_gt,
                                      pixel_mask=pm)
+        # impl naive leaves the carrier out of the graph: zero scores
         grads = torch.autograd.grad(
             total, list(params.values()) + [carrier]
-            + list(sky_params.values()))
+            + list(sky_params.values()), allow_unused=True,
+            materialize_grads=True)
         n_main = len(params)
         sky_grads = dict(zip(sky_params, grads[n_main + 1:]))
         grads = grads[:n_main + 1]
@@ -333,7 +338,8 @@ def storage_control(state: GaussianState, batch: KeyframeBatch,
         m = (torch.sum(gt, dim=0) > 0).to(torch.float32)
         loss = torch.sum(torch.abs(rets["rgb"] - gt) * m[None]) / \
             torch.clamp(torch.sum(m) * 3.0, min=1.0)
-        imp += torch.autograd.grad(loss, carrier)[0][:, 0]
+        imp += torch.autograd.grad(loss, carrier, allow_unused=True,
+                                   materialize_grads=True)[0][:, 0]
     prune = (imp > 0.05) & (imp < 0.8) & (~state.stable) & state.alive
     kill_rows(state, prune)
     return state, torch.sum(prune.to(torch.int32))

@@ -73,16 +73,23 @@ def _vsearch_left(a, v):
 def bin_surfels(proj: ProjectedSurfels, *, height: int, width: int,
                 p_cap: int, chunk: int = 128, side: int = 5,
                 tile: int = TILE, v_cap: int = 0,
-                need_grad: bool = True, tile_cap: int = 0) -> BinnedScene:
+                need_grad: bool = True, tile_cap: int = 0,
+                tile_rows: Optional[tuple] = None) -> BinnedScene:
     """Build the tile-grouped pair list. See module docstring.
 
     v_cap > 0 compacts to the nearest v_cap visible Gaussians before
-    candidate enumeration — the depth sort both culls and orders."""
+    candidate enumeration — the depth sort both culls and orders.
+    tile_rows = (r0, r1) keeps the tile rows r0..r1-1 of the image alone,
+    numbered from r0: each keeps the pairs it has in the whole image's
+    binning (the side clamp of large bboxes is the whole image's too)."""
     dev = proj.packed.device
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
     N = proj.packed.shape[0]
     nty, ntx = num_tiles(height, width, tile)
-    T = nty * ntx
+    r0, r1 = (0, nty) if tile_rows is None else tile_rows
+    if not 0 <= r0 < r1 <= nty:
+        raise ValueError(f"tile rows {r0}..{r1 - 1} of {nty}")
+    T = (r1 - r0) * ntx
     if T >= (1 << (32 - RANK_BITS)):
         raise ValueError(f"{T} tiles do not fit the sort key")
     K = side * side
@@ -144,7 +151,7 @@ def bin_surfels(proj: ProjectedSurfels, *, height: int, width: int,
     tx = tx0[:, None] + dxk                      # (V, K)
     ty = ty0[:, None] + dyk
     cand_valid = (visible[:, None] & (tx <= tx1[:, None])
-                  & (ty <= ty1[:, None]))
+                  & (ty <= ty1[:, None]) & (ty >= r0) & (ty < r1))
 
     # exact ellipse/tile-rect intersection: minimum of the conic quadratic
     # q(p) = (p-c)^T Sigma^{-1} (p-c) over the (margin-expanded) tile rect —
@@ -176,7 +183,7 @@ def bin_surfels(proj: ProjectedSurfels, *, height: int, width: int,
                           torch.minimum(q_edge_y(y0), q_edge_y(y1)))
     q_min = torch.where(inside, torch.zeros_like(q_min), q_min)
     cand_valid &= q_min <= q_cut[:, None]
-    tile_id = (ty * ntx + tx).to(i64)
+    tile_id = ((ty - r0) * ntx + tx).to(i64)
 
     # ---- single sort groups by (tile, depth): row index IS the depth rank.
     # int64 keys carry the same (tile << RANK_BITS | rank) order as the

@@ -2,7 +2,8 @@
 
 The numeric specification for the tile rasterizer: differentiable through
 autograd, used by the tests to check the tile path's channels and
-gradients. O(H*W*N) — only for small N.
+gradients, and the render of `impl="naive"` (render.py). O(H*W*N) — only
+for small N.
 
 Channel layout shared with the tile kernels:
   0:3  rgb               (front-to-back alpha blend, black background)
@@ -74,7 +75,9 @@ def render_naive(packed, order, n_valid_mask, camera: Camera):
     T_excl = torch.cat([torch.ones_like(alpha[:1]),
                         torch.cumprod(1.0 - alpha, dim=0)[:-1]], dim=0)
     w = alpha * T_excl                       # (N, P)
-    md = contract_depth(z)
+    # entries that are not kept have w = 0, but their z is anything: at
+    # z = -1 exactly contract_depth is infinite and 0 * inf is NaN
+    md = contract_depth(torch.where(keep, z, torch.zeros_like(z)))
     out = torch.cat([
         torch.einsum("np,nc->cp", w, p[:, PK_RGB]),
         torch.sum(w * z, dim=0)[None],

@@ -20,14 +20,18 @@ pass holds the scores (reference `_zeros.grad`).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from .projection import Camera, ProjectedSurfels, project_surfels
+from .projection import PK_C2Y, Camera, ProjectedSurfels, project_surfels
 from .binning import BinnedScene, bin_surfels, num_tiles, TILE
 from .tile_kernel import (rasterize_forward, rasterize_backward, CH_PAD,
                           GR_SCORE_IMP, GR_SCORE_ERR)
+from .naive import render_naive
+
+IMPLS = ("tile", "naive")
 
 
 def _unpack_tiles(out_tiles, height, width):
@@ -147,11 +151,18 @@ def _detached(proj: ProjectedSurfels) -> ProjectedSurfels:
     return ProjectedSurfels(*(x.detach() for x in proj))
 
 
+def band_camera(camera: Camera, h0, h1) -> Camera:
+    """The camera of rows h0..h1-1: the principal point moves up by h0, so
+    every pixel keeps its ray."""
+    return camera._replace(cy=camera.cy - h0, height=h1 - h0)
+
+
 def render(xyz, log_scale, quat, logit_opacity, rgb, camera: Camera, *,
            alive=None, flow=None, score_carrier=None,
            binned: Optional[BinnedScene] = None,
            p_cap: int = 1 << 21, chunk: int = 128, side: int = 5,
-           v_cap: int = 0, tile_cap: int = 0, grad_reduce: str = "bf16"):
+           v_cap: int = 0, tile_cap: int = 0, impl: str = "tile",
+           grad_reduce: str = "bf16", rows=None):
     """Full differentiable render from raw Gaussian parameters.
 
     `binned` may be passed in to reuse a cached binning across training
@@ -159,21 +170,53 @@ def render(xyz, log_scale, quat, logit_opacity, rgb, camera: Camera, *,
     pair->Gaussian reduction: "bf16" (default) gathers bf16 pair grads
     through the binning's inverse pair map; "f32" keeps the exact
     index_add_ segment sum.
+
+    impl "naive" renders every visible Gaussian at every pixel in plain
+    PyTorch (naive.render_naive), as the JAX package's naive branch does:
+    it ignores `binned` and the binning sizes, and, like that branch, it
+    leaves `score_carrier` out of the graph, so the scores are zero.
+
+    rows = (h0, h1), h0 a multiple of 16, renders rows h0..h1-1 of the
+    image alone: the visibility, the depth order and each tile's pairs are
+    the whole image's, so a row band renders what those rows of the whole
+    image would be (rets' maps are (C, h1 - h0, W); band_camera(camera,
+    h0, h1) is their camera).
     """
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {IMPLS}")
     if grad_reduce not in ("bf16", "f32"):
         raise ValueError(f"grad_reduce {grad_reduce!r}")
     proj = project_surfels(xyz, log_scale, quat, logit_opacity, rgb, camera,
                            alive=alive, flow=flow)
+    packed, out_cam, tile_rows = proj.packed, camera, None
+    if rows is not None:
+        h0, h1 = rows
+        if h0 % TILE or not 0 <= h0 < h1 <= camera.height:
+            raise ValueError(f"rows {rows}: a band starts on a tile row")
+        out_cam = band_camera(camera, h0, h1)
+        # the screen centres in the band's rows
+        shift = torch.zeros_like(packed[0])
+        shift[PK_C2Y] = h0
+        packed = packed - shift
+        tile_rows = (h0 // TILE, -(-h1 // TILE))
+    if impl == "naive":
+        # stable, as jnp.argsort: equal depths keep their index order
+        order = torch.argsort(torch.where(
+            proj.visible, proj.depth, torch.full_like(proj.depth, math.inf)),
+            stable=True)
+        ch = render_naive(packed, order, proj.visible[order], out_cam)
+        return _channels_to_rets(ch, proj)
     if score_carrier is None:
         score_carrier = torch.zeros((xyz.shape[0], 2), dtype=torch.float32,
                                     device=xyz.device)
     if binned is None:
         binned = bin_surfels(_detached(proj), height=camera.height,
                              width=camera.width, p_cap=p_cap, chunk=chunk,
-                             side=side, v_cap=v_cap, tile_cap=tile_cap)
+                             side=side, v_cap=v_cap, tile_cap=tile_cap,
+                             tile_rows=tile_rows)
     if grad_reduce == "f32" and binned.grad_tbl is not None:
         binned = binned._replace(grad_tbl=None)
-    ch = rasterize_binned(proj.packed, score_carrier, binned, camera)
+    ch = rasterize_binned(packed, score_carrier, binned, out_cam)
     return _channels_to_rets(ch, proj)
 
 

@@ -1,4 +1,5 @@
-"""Data parallelism over the mapper's keyframe window, one process per rank.
+"""Data parallelism over the mapper's keyframe window, and image rows split
+within a keyframe, one process per rank.
 
 The counterpart of the JAX package's `parallel/mesh.py`. There one process
 drives a mesh of devices and `shard_map` runs the train loop's body on each;
@@ -29,8 +30,18 @@ several ranks on one card, with CUDA tensors staged through the host. There
 is no fallback: a CUDA group that names more cards than the machine has
 raises, where JAX's `make_dp_mesh` falls back to the CPU's virtual devices.
 
-Not ported: the `sp` axis (image rows sharded within a keyframe, used by
-JAX's naive-render dryrun); `make_mesh` with sp > 1 raises.
+`make_mesh` builds JAX's (dp, sp) mesh as one group of dp x sp ranks, rank
+(d, s) = d sp + s. `sharded_train_step` runs one mapper step over it: rank
+(d, s) renders keyframes [d K/dp, (d+1) K/dp) over row band s, whole 16-row
+tile rows plus a halo of one tile row each side (`row_bands`,
+`shard_batch`), through render's `rows`: the band's visibility, depth order
+and tile pair lists are the whole image's. Every term of the mapper loss
+is a sum over pixels divided by a sum that does not depend on the
+parameters: one SUM of the bands' divisors, then each rank differentiates
+its own rows' sums over those divisors, and the SUM of those gradients is
+the gradient of the mean loss, through the halo rows too. Where JAX lets
+XLA partition the step by rows, here the split is written out. The
+mapper's own dp calls take a group with sp = 1.
 """
 
 from __future__ import annotations
@@ -51,17 +62,17 @@ import torch
 import torch.distributed as dist
 
 from ..mapper.cameras import make_camera
-from ..mapper.losses import mapper_loss
+from ..mapper.losses import (TERMS, combine_parts, mapper_loss,
+                             mapper_loss_parts, surrogate_weights)
 from ..mapper.state import (PARAM_FIELDS, STATE_FIELDS, GaussianState,
                             SparseAdamState, sparse_adam_step)
 from ..mapper.train import KeyframeBatch, bin_rows, train_loop
-from ..ops.rasterizer import BinnedScene, render
+from ..ops.rasterizer import TILE, BinnedScene, render
 from ..ops.rasterizer import tile_kernel
+from ..ops.rasterizer.render import IMPLS, band_camera
 
 DEFAULT_TIMEOUT_S = 600.0   # bound of one collective and of the group's start
 POLL_S = 0.2                # liveness polling period while waiting
-SP_TODO = ("the sp axis (image rows sharded within a keyframe) is not "
-           "ported: ROADMAP.md §A, the sp row split")
 BIN_FIELDS = ("xyz", "log_scale", "quat", "logit_opacity", "rgb", "alive")
 KERNELS = (tile_kernel.rasterize_forward, tile_kernel.rasterize_backward)
 _ALIGN = 8                  # byte alignment of each tensor in a packed buffer
@@ -201,8 +212,10 @@ class DPGroup:
     the followers. The collectives are SPMD: every rank calls the same one
     in the same order, the leader with the data, followers with metas."""
 
-    def __init__(self, rank, world, device, backend, timeout_s):
+    def __init__(self, rank, world, device, backend, timeout_s, sp=1):
         self.rank, self.world = int(rank), int(world)
+        self.sp = int(sp)
+        self.dp = self.world // self.sp
         self.device = torch.device(device)
         self.backend = backend
         self.timeout_s = float(timeout_s)
@@ -224,15 +237,25 @@ class DPGroup:
         self.peak_bytes = {}      # follower rank -> peak device bytes
         self.closed = False
 
+    @property
+    def shape(self):
+        """{"dp": dp, "sp": sp}, as a JAX mesh's shape."""
+        return {"dp": self.dp, "sp": self.sp}
+
+    @property
+    def coords(self):
+        """(d, s) of this rank: rank = d sp + s."""
+        return divmod(self.rank, self.sp)
+
     # -- start / stop (leader) --
     @classmethod
-    def start(cls, devices, backend):
+    def start(cls, devices, backend, sp=1):
         """Spawn ranks 1..N-1 on devices[1:], join the group as rank 0."""
         if dist.is_initialized():
             raise RuntimeError("a process group is already open in this "
                                "process: close the other dp group first")
         devices = [torch.device(d) for d in devices]
-        g = cls(0, len(devices), devices[0], backend, DEFAULT_TIMEOUT_S)
+        g = cls(0, len(devices), devices[0], backend, DEFAULT_TIMEOUT_S, sp)
         g._tmpdir = tempfile.mkdtemp(prefix="vings_dp_")
         init = "file://" + os.path.join(g._tmpdir, "store")
         ctx = mp.get_context("spawn")
@@ -243,7 +266,7 @@ class DPGroup:
                 p = ctx.Process(
                     target=_follower_main, name=f"vings-dp-rank{r}",
                     args=(r, g.world, init, str(devices[r]), backend,
-                          g.timeout_s, q, g._reply_q, _numeric_mode()),
+                          g.timeout_s, q, g._reply_q, _numeric_mode(), sp),
                     daemon=True)
                 p.start()
                 g._cmd_qs.append(q)
@@ -427,29 +450,43 @@ class DPGroup:
             return list(tensors)
         return unpack(buf.to(self.device), metas)
 
-    def put_dp(self, tensors, metas):
-        """Scatter slot slices over dp (JAX's `put_dp` / `shard_batch`
-        without the sp rows): every tensor has K rows on the leader and
-        rank r gets rows [r K/dp, (r+1) K/dp). `metas` are the local
-        slices' (shape, dtype)."""
-        if self.rank == 0:
-            k = next(t.shape[0] for t in tensors if t is not None)
-            kl = k // self.world
-            local = [None if t is None else t[:kl] for t in tensors]
+    def scatter(self, parts, metas):
+        """Rank r gets parts[r], a list of tensors (None for none) whose
+        (shape, dtype) metas[r] gives: the leader passes parts, followers
+        None; every rank passes metas. The ranks' buffers are padded to
+        the largest (Gloo scatters equal sizes)."""
+        size = max(sum(_nbytes(m)[1] for m in ms if m is not None)
+                   for ms in metas)
 
         def run():
-            out = self._empty(metas)
+            out = torch.empty(size, dtype=torch.uint8,
+                              device=self.comm_device)
             bufs = None
             if self.rank == 0:
-                bufs = [pack([None if t is None else t[r * kl:(r + 1) * kl]
-                              for t in tensors], self.device)
-                        .to(self.comm_device) for r in range(self.world)]
+                bufs = []
+                for p in parts:
+                    b = pack(p, self.device)
+                    bufs.append(torch.cat([b, b.new_zeros(size - b.numel())])
+                                .to(self.comm_device))
             dist.scatter(out, scatter_list=bufs, src=0)
             return out
         out = self._timed(run)
         if self.rank == 0:
-            return local
-        return unpack(out.to(self.device), metas)
+            return list(parts[0])
+        return unpack(out.to(self.device), metas[self.rank])
+
+    def put_dp(self, tensors, metas):
+        """Scatter slot slices over dp (JAX's `put_dp`): every tensor has K
+        rows on the leader and rank (d, s) gets rows [d K/dp, (d+1) K/dp).
+        `metas` are the local slices' (shape, dtype)."""
+        parts = None
+        if self.rank == 0:
+            k = next(t.shape[0] for t in tensors if t is not None)
+            kl = k // self.dp
+            parts = [[None if t is None else
+                      t[r // self.sp * kl:(r // self.sp + 1) * kl]
+                      for t in tensors] for r in range(self.world)]
+        return self.scatter(parts, [metas] * self.world)
 
     def gather_dp(self, tensors):
         """Inverse of put_dp: the ranks' rows stacked in rank order on the
@@ -501,13 +538,13 @@ def _init_process_group(group, init):
 
 
 def _follower_main(rank, world, init, device, backend, timeout_s, cmd_q,
-                   reply_q, mode):
+                   reply_q, mode, sp):
     """A follower's process: join the group, then run the leader's calls
     until it sends None or exits. An exception goes back on reply_q and
     ends the follower (its collectives are out of step after it)."""
     try:
         _set_numeric_mode(mode)
-        group = DPGroup(rank, world, device, backend, timeout_s)
+        group = DPGroup(rank, world, device, backend, timeout_s, sp)
         if group.device.type == "cuda":
             torch.cuda.set_device(group.device)
         _init_process_group(group, init)
@@ -552,27 +589,91 @@ def make_dp_mesh(dp, platform=None, devices=None, backend=None):
     return DPGroup.start(devices, backend)
 
 
-def make_mesh(n_devices=None, devices=None, dp=None):
+def make_mesh(n_devices=None, devices=None, dp=None, backend=None):
     """JAX's (dp, sp) `make_mesh`: n devices (default: every CUDA device),
-    dp = n when n <= 4 else n // 2, sp = n // dp. Only sp = 1 is ported;
-    it starts the dp group."""
+    dp = n when n <= 4 else n // 2, sp = n // dp, one group of n ranks,
+    rank (d, s) = d sp + s on devices[rank]. `backend` as in
+    `make_dp_mesh` (gloo for several ranks on one card). The caller is
+    rank 0 and must `close()` it."""
     if devices is None:
         if n_devices is None:
             n_devices = torch.cuda.device_count()
         devices = [f"cuda:{i}" for i in range(n_devices)]
+    devices = list(devices)
     n = len(devices)
     if dp is None:
         dp = n if n <= 4 else n // 2
-    if n // dp > 1:
-        raise NotImplementedError(SP_TODO)
-    return make_dp_mesh(dp, devices=list(devices)[:dp])
+    if dp < 1 or n % dp:
+        raise ValueError(f"{n} devices do not form a (dp = {dp}, sp) mesh")
+    devices, backend = dp_placement(n, devices=devices, backend=backend)
+    return DPGroup.start(devices, backend, sp=n // dp)
+
+
+# ---- row bands --------------------------------------------------------------
+def row_bands(height, sp):
+    """(r0, r1, h0, h1) of each of sp row bands of an image: rows r0..r1-1
+    are the band's own, whole 16-row tile rows split as evenly as they go
+    (the first bands take one more), and h0..h1-1 add a halo of one tile
+    row each side, clipped at the image's edges. The halo covers what a
+    band's own rows read of their neighbours: SSIM's window (5 rows) and
+    the normals' central differences (1 row). Raises when sp exceeds the
+    tile rows."""
+    n = -(-int(height) // TILE)
+    if not 1 <= sp <= n:
+        raise ValueError(f"sp = {sp} row bands of a {height}-row image, "
+                         f"which has {n} tile rows of {TILE}")
+    out, t0 = [], 0
+    for s in range(sp):
+        t1 = t0 + n // sp + (s < n % sp)
+        r0, r1 = t0 * TILE, min(t1 * TILE, height)
+        out.append((r0, r1, max(r0 - TILE, 0), min(r1 + TILE, height)))
+        t0 = t1
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def shard_batch(group, tree):
+    """JAX's `shard_batch`, split on the leader: the tree each rank gets,
+    in rank order. Tensors of 3 or more dimensions lead with K keyframes
+    and end with (rows, columns): rank (d, s) gets slots [d K/dp, (d+1)
+    K/dp) and the rows h0..h1-1 of band s (`row_bands`). Tensors of 1 or 2
+    dimensions go over dp when K divides by dp and are replicated
+    otherwise; anything else is replicated."""
+    dp, sp = group.dp, group.sp
+
+    def part(x, r):
+        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x
+        d, s = divmod(r, sp)
+        kl = x.shape[0] // dp
+        if x.ndim >= 3:
+            _check_divides(x.shape[0], dp)
+            _, _, h0, h1 = row_bands(x.shape[-2], sp)[s]
+            return x[d * kl:(d + 1) * kl, ..., h0:h1, :]
+        return x[d * kl:(d + 1) * kl] if x.shape[0] % dp == 0 else x
+    return [_tree_map(lambda x: part(x, r), tree) for r in range(group.world)]
 
 
 # ---- the mapper's dp calls ------------------------------------------------
-def _check_divides(k, world):
-    if k % world:
-        raise ValueError(f"kf_capacity {k} must divide by parallel.dp "
-                         f"{world}")
+def _check_divides(k, dp):
+    if k % dp:
+        raise ValueError(f"kf_capacity {k} must divide by parallel.dp {dp}")
+
+
+def _check_dp_only(group):
+    if group.sp != 1:
+        raise ValueError(f"the mapper's dp calls shard keyframes only; this "
+                         f"group is {group.shape}: start one with "
+                         f"make_dp_mesh")
 
 
 def dp_bin_stack(group, state, batch, intr4, height, width, **bin_kwargs):
@@ -580,6 +681,7 @@ def dp_bin_stack(group, state, batch, intr4, height, width, **bin_kwargs):
     replicated state (JAX's `dp_bin_stack`); the rows are gathered on the
     leader, which returns the whole window's BinnedScene (its other
     readers: refinement, storage control and the pair-bucket stats)."""
+    _check_dp_only(group)
     _check_divides(batch.w2cs.shape[0], group.world)
     rep = [getattr(state, f) for f in BIN_FIELDS]
     local = [batch.w2cs[:batch.w2cs.shape[0] // group.world]]
@@ -619,7 +721,8 @@ def _window(batch, binned, sky):
     out = [batch.images, batch.depths, batch.depths_cov, batch.w2cs,
            batch.global_kf_id, batch.pixel_mask, *binned]
     if sky is not None:
-        out += [sky[2], *sky[3]]
+        # with impl naive the sphere has no binning
+        out += [sky[2], *(sky[3] or [None] * len(BinnedScene._fields))]
     return out
 
 
@@ -634,6 +737,7 @@ def dp_train_loop(group, state, opt, batch, binned_stack, intr4, *, iters,
     are sharded, and the ranks combine their results every iteration as
     `train_loop(group=...)` says. Updates the leader's state and opt in
     place and returns (state, opt, metrics) as train_loop does."""
+    _check_dp_only(group)
     k = batch.images.shape[0]
     _check_divides(k, group.world)
     sched = [[int(x) for x in row] for row in kf_schedule]
@@ -679,7 +783,9 @@ def _train_body(group, st, payload):
     binned = BinnedScene(*loc[6:6 + nb])
     lsky = None
     if st["use_sky"]:
-        lsky = (sky[0], sky[1], loc[6 + nb], BinnedScene(*loc[7 + nb:]))
+        sbin = BinnedScene(*loc[7 + nb:])
+        lsky = (sky[0], sky[1], loc[6 + nb],
+                None if sbin.sel is None else sbin)
     _, _, metrics = train_loop(
         state, opt, batch, binned, st["intr4"], iters=st["iters"],
         height=st["height"], width=st["width"],
@@ -694,36 +800,46 @@ def _train_body(group, st, payload):
     return (state, opt, metrics), out + list(metrics.values())
 
 
-# ---- the dp tile step (JAX's sharded_tile_* and sharded_train_step) --------
-def _tile_call(group, state, opt, images, depths, covs, w2cs, intr4, *,
-               height, width, p_cap, chunk, step):
+# ---- the mapper step over a (dp, sp) group ----------------------------------
+def _step_call(group, state, opt, images, depths, covs, w2cs, intr4, *,
+               height, width, impl, p_cap, chunk, step):
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {IMPLS}")
     k = images.shape[0]
-    _check_divides(k, group.world)
+    _check_divides(k, group.dp)
+    if tuple(images.shape[-2:]) != (height, width):
+        raise ValueError(f"images are {tuple(images.shape[-2:])}, the "
+                         f"camera {height}x{width}")
+    bands = row_bands(height, group.sp)
     rep = [getattr(state, f) for f in PARAM_FIELDS + ("alive", "stable")]
     if step:
         rep += _opt_tensors(opt)
-    shard = [images, depths, covs, w2cs]
-    kl = k // group.world
+    # the poses as (K, 16): 2-D, so they go over dp without a row band
+    parts = shard_batch(group, [images, depths, covs, w2cs.reshape(k, 16)])
     static = {"rep_meta": tensor_meta(rep),
-              "shard_meta": tensor_meta([t[:kl] for t in shard]),
-              "intr4": tuple(float(x) for x in intr4),
-              "height": int(height), "width": int(width),
+              "shard_metas": [tensor_meta(p) for p in parts], "k": k,
+              "bands": bands, "intr4": tuple(float(x) for x in intr4),
+              "height": int(height), "width": int(width), "impl": impl,
               "p_cap": int(p_cap), "chunk": int(chunk), "step": step,
-              "opt_step": opt.step}
-    return group.call("tile", static, (rep, shard, state, opt))
+              "opt_step": opt.step,
+              # a tile's pair gradients are split between the bands that
+              # render it: bf16 partials do not add up to the bf16 whole
+              "grad_reduce": "f32" if group.sp > 1 else "bf16"}
+    return group.call("step", static, (rep, parts, state, opt))
 
 
-def _local_tile_grads(params, alive, images, depths, covs, w2cs, intr4,
-                      height, width, p_cap, chunk):
-    """Gradients of the mean mapper loss over this rank's keyframes, each
-    rendered through its own binning; (grads, visibility, loss)."""
+def local_grads(params, alive, images, depths, covs, w2cs, intr4, height,
+                width, p_cap, chunk, impl="tile", grad_reduce="bf16"):
+    """Gradients of the mean mapper loss over these keyframes, each
+    rendered whole in this process; (grads, visibility, loss)."""
     params = {k: p.detach().requires_grad_() for k, p in params.items()}
     totals, vis = [], None
     for i in range(images.shape[0]):
         cam = make_camera(w2cs[i], intr4, height, width)
         rets = render(params["xyz"], params["log_scale"], params["quat"],
                       params["logit_opacity"], params["rgb"], cam,
-                      alive=alive, p_cap=p_cap, chunk=chunk)
+                      alive=alive, p_cap=p_cap, chunk=chunk, impl=impl,
+                      grad_reduce=grad_reduce)
         total, _ = mapper_loss(rets, images[i], depths[i], covs[i], cam)
         totals.append(total)
         vis = rets["visible"] if vis is None else vis | rets["visible"]
@@ -732,31 +848,69 @@ def _local_tile_grads(params, alive, images, depths, covs, w2cs, intr4,
     return dict(zip(params, grads)), vis, loss.detach()
 
 
-def _tile_body(group, st, payload):
-    if group.rank == 0:
-        rep, shard, state, opt = payload
-    else:
-        rep = shard = None
-    rep = group.replicate(rep, st["rep_meta"])
-    images, depths, covs, w2cs = group.put_dp(shard, st["shard_meta"])
-    fields = PARAM_FIELDS + ("alive", "stable")
-    geom = dict(zip(fields, rep[:len(fields)]))
-    grads, vis, loss = _local_tile_grads(
-        {k: geom[k] for k in PARAM_FIELDS}, geom["alive"], images, depths,
-        covs, w2cs, st["intr4"], st["height"], st["width"], st["p_cap"],
-        st["chunk"])
-    # pmean of the gradients and the loss, OR of the visibility: one SUM
-    flat = torch.cat([g.reshape(-1) for g in grads.values()]
-                     + [loss.reshape(1), vis.to(torch.float32)])
+def _band_grads(group, st, params, alive, images, depths, covs, w2cs):
+    """This rank's share of the step: gradients of the sum over its
+    keyframes t of sum_k c_k num[t, k] / max(den[t, k], 1) / K, num over
+    its band's own rows and den over the whole image (one SUM of the
+    bands'), then one SUM over the group: the mean loss's gradients, its
+    value from the summed numerators, and the OR of the visibility."""
+    k, kl = st["k"], images.shape[0]
+    d, s = group.coords
+    r0, r1, h0, h1 = st["bands"][s]
+    params = {n: p.detach().requires_grad_() for n, p in params.items()}
+    nums, dens, vis = [], [], None
+    for i in range(kl):
+        cam = make_camera(w2cs[i].reshape(4, 4), st["intr4"], st["height"],
+                          st["width"])
+        rets = render(params["xyz"], params["log_scale"], params["quat"],
+                      params["logit_opacity"], params["rgb"], cam,
+                      alive=alive, p_cap=st["p_cap"], chunk=st["chunk"],
+                      impl=st["impl"], grad_reduce=st["grad_reduce"],
+                      rows=(h0, h1))
+        num, den = mapper_loss_parts(rets, images[i], depths[i], covs[i],
+                                     band_camera(cam, h0, h1),
+                                     rows=(r0 - h0, r1 - h0))
+        nums.append(num)
+        dens.append(den)
+        vis = rets["visible"] if vis is None else vis | rets["visible"]
+    mine = slice(d * kl, (d + 1) * kl)
+    nums = torch.stack(nums)
+    den_all = nums.new_zeros((k, len(TERMS)))
+    den_all[mine] = torch.stack(dens)
+    den_all = group.all_reduce(den_all.reshape(-1), "sum").view(k, -1)
+    coef = surrogate_weights().to(nums.device)
+    surrogate = torch.sum(nums / torch.clamp(den_all[mine], min=1.0)
+                          * coef) / k
+    grads = torch.autograd.grad(surrogate, list(params.values()))
+    num_all = nums.new_zeros((k, len(TERMS)))
+    num_all[mine] = nums.detach()
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [num_all.reshape(-1), vis.to(torch.float32)])
     flat = group.all_reduce(flat, "sum")
     out, off = {}, 0
-    for k, g in grads.items():
-        out[k] = flat[off:off + g.numel()].view(g.shape) / group.world
+    for n, g in zip(params, grads):
+        out[n] = flat[off:off + g.numel()].view(g.shape)
         off += g.numel()
-    loss = flat[off] / group.world
-    vis = flat[off + 1:] > 0
+    num_all = flat[off:off + num_all.numel()].view(k, -1)
+    loss = torch.stack([combine_parts(num_all[t], den_all[t])[0]
+                        for t in range(k)]).mean()
+    return out, flat[off + num_all.numel():] > 0, loss
+
+
+def _step_body(group, st, payload):
+    if group.rank == 0:
+        rep, parts, state, opt = payload
+    else:
+        rep = parts = None
+    rep = group.replicate(rep, st["rep_meta"])
+    images, depths, covs, w2cs = group.scatter(parts, st["shard_metas"])
+    fields = PARAM_FIELDS + ("alive", "stable")
+    geom = dict(zip(fields, rep[:len(fields)]))
+    grads, vis, loss = _band_grads(
+        group, st, {k: geom[k] for k in PARAM_FIELDS}, geom["alive"], images,
+        depths, covs, w2cs)
     if not st["step"]:
-        return (out, vis, loss), [*out.values(), vis, loss]
+        return (grads, vis, loss), [*grads.values(), vis, loss]
     if group.rank != 0:
         state = SimpleNamespace(params=lambda: {k: geom[k]
                                                 for k in PARAM_FIELDS})
@@ -764,20 +918,32 @@ def _tile_body(group, st, payload):
         opt = SparseAdamState(m=dict(zip(PARAM_FIELDS, mv[:5])),
                               v=dict(zip(PARAM_FIELDS, mv[5:])),
                               step=st["opt_step"])
-    sparse_adam_step(state, out, opt, vis & geom["alive"] & ~geom["stable"])
+    sparse_adam_step(state, grads, opt, vis & geom["alive"] & ~geom["stable"])
     tensors = list(state.params().values()) + _opt_tensors(opt)
     return (state, opt, loss), tensors + [loss]
 
 
+def sharded_grads(group, state, opt, images, depths, covs, w2cs, intr4, *,
+                  height, width, impl, p_cap=4096, chunk=128):
+    """Gradients, visibility and loss of the mean mapper loss over the
+    keyframes (no step): rank (d, s) renders its K/dp keyframes over row
+    band s (`_band_grads`). Every rank gets the same. With sp > 1 the tile
+    path reduces its per-pair gradients in f32 (render's grad_reduce):
+    a tile that two bands render has its pair gradients split between
+    them, and the sum of bf16-rounded parts is not the bf16-rounded sum
+    (1-2 % of the largest gradient apart at 32x32 and 64x48)."""
+    return _step_call(group, state, opt, images, depths, covs, w2cs, intr4,
+                      height=height, width=width, impl=impl, p_cap=p_cap,
+                      chunk=chunk, step=False)
+
+
 def sharded_tile_grads(group, state, opt, images, depths, covs, w2cs, intr4,
                        *, height, width, p_cap=4096, chunk=128):
-    """Gradients, visibility and loss of the dp tile step (JAX's
-    `sharded_tile_grads`): each rank renders its K/dp keyframes, takes the
-    gradient of its local mean loss, and the ranks average the gradients
-    and the loss and OR the visibility. Every rank gets the same."""
-    return _tile_call(group, state, opt, images, depths, covs, w2cs, intr4,
-                      height=height, width=width, p_cap=p_cap, chunk=chunk,
-                      step=False)
+    """JAX's `sharded_tile_grads`: `sharded_grads` through the tile
+    kernels. On a (dp, 1) group each rank renders its keyframes whole."""
+    return sharded_grads(group, state, opt, images, depths, covs, w2cs,
+                         intr4, height=height, width=width, impl="tile",
+                         p_cap=p_cap, chunk=chunk)
 
 
 def sharded_tile_train_step(group, state, opt, images, depths, covs, w2cs,
@@ -786,25 +952,32 @@ def sharded_tile_train_step(group, state, opt, images, depths, covs, w2cs,
     visible, alive, unstable rows, on every rank (JAX's
     `sharded_tile_train_step`); updates the leader's state and opt in
     place and returns (state, opt, loss)."""
-    return _tile_call(group, state, opt, images, depths, covs, w2cs, intr4,
-                      height=height, width=width, p_cap=p_cap, chunk=chunk,
-                      step=True)
+    return _step_call(group, state, opt, images, depths, covs, w2cs, intr4,
+                      height=height, width=width, impl="tile", p_cap=p_cap,
+                      chunk=chunk, step=True)
 
 
 def sharded_train_step(state, opt, images, depths, covs, w2cs, intr4, *,
-                       height, width, group=None):
-    """JAX's naive-render `sharded_train_step` (p_cap 4096, chunk 64). The
-    port has one render path, the tile kernels, so this is the tile step
-    at those sizes; without a group it runs every keyframe here."""
+                       height, width, impl="naive", group=None, p_cap=4096,
+                       chunk=64):
+    """JAX's `sharded_train_step`: one mapper step, the mean loss over the
+    K keyframes, its gradients and the masked sparse-Adam step, updating
+    state and opt in place; returns (state, opt, loss). impl "naive" (the
+    default, as in JAX) or "tile"; p_cap and chunk (JAX's fixed 4096 and
+    64) size the tile binning. With a group from `make_mesh`, rank (d, s)
+    renders its K/dp keyframes over row band s; without one every keyframe
+    is rendered whole here."""
     if group is not None:
-        return sharded_tile_train_step(group, state, opt, images, depths,
-                                       covs, w2cs, intr4, height=height,
-                                       width=width, p_cap=4096, chunk=64)
-    grads, vis, loss = _local_tile_grads(
+        return _step_call(group, state, opt, images, depths, covs, w2cs,
+                          intr4, height=height, width=width, impl=impl,
+                          p_cap=p_cap, chunk=chunk, step=True)
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {IMPLS}")
+    grads, vis, loss = local_grads(
         state.params(), state.alive, images, depths, covs, w2cs, intr4,
-        height, width, 4096, 64)
+        height, width, p_cap, chunk, impl)
     sparse_adam_step(state, grads, opt, vis & state.alive & ~state.stable)
     return state, opt, loss
 
 
-BODIES = {"bin": _bin_body, "train": _train_body, "tile": _tile_body}
+BODIES = {"bin": _bin_body, "train": _train_body, "step": _step_body}

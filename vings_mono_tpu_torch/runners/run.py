@@ -29,9 +29,9 @@ frame becomes its `depth`, stage `metric`), and in the mapper `use_sky`,
 `--resume DIR` loads a session of either package and carries on at the
 frame its keyframe count names. `parallel: {dp: N}` trains the map on N
 ranks, one process each (`parallel/mesh.py`); the mapper stops them when
-the run ends, however it ends. `check_ported` raises NotImplementedError
-for an unknown `mode` and for `parallel.sp` > 1 (image rows sharded within
-a keyframe), which the port lacks.
+the run ends, however it ends; as in the JAX package, `parallel.sp` is
+read by no runner (`parallel.mesh.sharded_train_step` takes a (dp, sp)
+group). `check_ported` raises NotImplementedError for an unknown `mode`.
 """
 
 from __future__ import annotations
@@ -52,9 +52,6 @@ def check_ported(cfg):
         raise NotImplementedError(
             f"mode: {cfg.get('mode')} is not ported yet (ported: "
             f"{', '.join(MODES)})")
-    if int((cfg.get("parallel") or {}).get("sp", 1)) > 1:
-        from ..parallel.mesh import SP_TODO
-        raise NotImplementedError(f"parallel.sp > 1: {SP_TODO}")
 
 
 def build_tracker(cfg, dataset, device=None):
