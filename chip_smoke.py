@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--keyframes 6] [--iters 100]
-                          [--vo-frames 70] [--vio-frames 100]
+                          [--vo-frames 70] [--vio-frames 60]
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. build the CUDA kernels (csrc/*.cu) and print the build seconds, then
@@ -65,8 +65,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      oracle targets against the dense `ba_global`, and alone at T = 8000
      (the KITTI-360 save_buffer) with GlobalBA's band and CG settings: ms
      per Gauss-Newton step, CG iterations, peak memory;
- 11. phase 4's replay once each with `use_sky`, `use_refine` (one
-     keyframe's pose perturbed by a known SE3) and `coarse_frac` 0.5:
+ 11. phase 4's replay once each with `use_sky` and `coarse_frac` 0.5
+     (its first 3 windows) and `use_refine` (all 5, one keyframe's pose
+     perturbed by a known SE3):
      keyframe times against phase 4's, PSNR, both kernels against their
      plain twins on the sky sphere's pairs and at 120x400, and refine's
      gradient with respect to the pose through the kernels against the
@@ -99,11 +100,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      of positive `disps_sens` and the median prior depth, ATE
      (`eval_trajectory`), PSNR (`eval_psnr`), `bench_mfu`, the launches,
      the session's size and save ms; both kernels held against their
-     plain twins on eval_psnr's render; the same run again (the card's
-     spread); and `--resume` from the frame-20 session to frame 30 (load
-     ms, keyframe count, pose gap to the first run);
+     plain twins on eval_psnr's render; the same run again, whose poses
+     must equal the first run's bit for bit (every runner runs inside
+     `utils.device.reproducible`); and `--resume` from the frame-20
+     session to frame 30 (load ms, keyframe count, pose gap to the first
+     run);
  15. the slice's main path: the image-folder datasets, the remaining
-     runners and the trainer. (a) A `kitti_sync` folder of 40 frames of
+     runners and the trainer. (a) A `kitti_sync` folder of 30 frames of
      the synthetic3d room rendered at 370x1226 with KITTI-0028's
      intrinsics (image_02/data, metadata/camstamp.txt at 10 Hz,
      metadata/imu.txt from the room's analytic IMU at 100 Hz written
@@ -113,7 +116,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      weights set): stage times, frames/s, host ms per `dataset[idx]`
      (370x1226 -> 240x800), ATE against pose/, launches, and both kernels
      against their plain twins on the final map under the newest
-     keyframe's camera; (b) `runners.run_tracking.run` on the folder,
+     keyframe's camera; then (a) once more with `reproducible` swapped
+     for a null context: frames/s, track and map ms beside (a)'s, and the
+     BA sums of one tracked frame timed by torch's deterministic
+     index_add_, by a sorted segment sum and by index_add_ without the
+     mode; (b) `runners.run_tracking.run` on the folder,
      keyframes and pose gap against (a) as findings; (c)
      `runners.run_multiprocess.run`: frames/s beside (a), windows mapped
      and dropped, the tracker against (b), the .ply, the TF32 flags equal
@@ -122,14 +129,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      server's place, one finite render per mapped window; (e) the DROID
      trainer: one clip's loss and gradients card against CPU, 20 steps of
      `runners.train_droid`'s loop from the repository's weights (s/step,
-     peak memory, losses) and the checkpoint loaded back bitwise;
+     peak memory, losses) and the checkpoint loaded back bitwise; then
+     the same for the self-training recipes of SuperPoint, LightGlue,
+     FastSAM and the DPT metric-depth net (`runners.train_superpoint`,
+     `train_lightglue`, `train_fastsam`, `train_metric_depth`) at their
+     scripts' shapes from the shipped weights, and 3 steps of each on a
+     fixed pool run twice, bitwise equal;
  16. data parallelism over the keyframe window, dp = 2 with both ranks on
      cuda:0 over Gloo (and over NCCL on cuda:0 + cuda:1 where the machine
      has two cards; else one line says that NCCL did not run): (a)
      `parallel.mesh.sharded_tile_grads` on tests/test_parallel.py's scene
      scaled to 240x800 (K = 8) against dp = 1 on the card and against the
      CPU plain path, both kernels against their twins on rank 1's inputs;
-     (b) phase 4's replay through GaussianMapper with `parallel`, the
+     (b) phase 4's first 3 windows through GaussianMapper with `parallel`, the
      ranks' state digests compared after every call: ms per keyframe and
      the collectives' host ms per iteration beside phase 4's, PSNR, peak
      memory and launches per rank; (c) smoke.yaml's first 20 frames
@@ -147,7 +159,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      naive` on three windows at 48x80, card against CPU per keyframe, no
      tile kernel launched.
 Every phase runs with PyTorch's default numeric flags: the port clears
-TF32 where it computes in f32 (`utils.device.true_f32`).
+TF32 where it computes in f32 (`utils.device.true_f32`), and its runners
+and trainers enter `utils.device.reproducible` themselves.
 The second-to-last line is the card's name and power limit, the last line
 a JSON summary. Without CUDA it exits 1 and prints no result.
 """
@@ -2160,6 +2173,9 @@ def banded_at_scale(be, h, w):
 # ---------------------------------------------------------------------------
 
 REFINE_KF = 2      # the keyframe whose pose phase 11 perturbs
+# phase 11's sky and coarse runs and 16b replay the first 3 of phase 4's 5
+# windows (all 5 until PR 11, cut to keep the script inside its time)
+REPLAY_WINDOWS = 3
 REFINE_PERT = (0.03, -0.02, 0.025, 0.004, -0.003, 0.002)   # SE3 tangent
 
 
@@ -2271,7 +2287,9 @@ def mapper_options_phase(args, tk, cfg, phase4_ms, win_dir, seed):
             "save_dir": str(OUT / f"run_{name}")}))
         tk.rasterize_forward.launches = 0
         tk.rasterize_backward.launches = 0
-        mapper, records = run_mapping.run(c, str(OUT / f"run_{name}"))
+        mapper, records = run_mapping.run(
+            c, str(OUT / f"run_{name}"),
+            max_windows=None if name == "refine" else REPLAY_WINDOWS)
         launches[name] = {"rasterize_forward": tk.rasterize_forward.launches,
                           "rasterize_backward":
                               tk.rasterize_backward.launches}
@@ -2898,10 +2916,12 @@ def pose_gap(a, b, frames):
     trajectories over the given frame timestamps."""
     dist = ang = 0.0
     for t in frames:
-        ma, mb = a[float(t)], b[float(t)]
+        ma, mb = (np.asarray(m[float(t)], np.float64) for m in (a, b))
         dist = max(dist, float(np.linalg.norm(ma[:3, 3] - mb[:3, 3])))
-        c = (np.trace(ma[:3, :3].T @ mb[:3, :3]) - 1.0) / 2.0
-        ang = max(ang, float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+        # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): exactly 0 for equal
+        # rotations, where arccos of the trace rounds to ~0.03 deg in f32
+        s = np.linalg.norm(ma[:3, :3] - mb[:3, :3]) / (2.0 * np.sqrt(2.0))
+        ang = max(ang, float(np.degrees(2.0 * np.arcsin(min(s, 1.0)))))
     return dist, ang
 
 
@@ -3027,14 +3047,22 @@ def metric_session_phase(args, tk):
 
     (again, _, _), wall2, _, snaps2 = one_run("again")
     frames = range(RESUME_AT, n_frames)
-    spread = pose_gap(first, poses_by_ts(again), frames)
+    second = poses_by_ts(again)
+    spread = pose_gap(first, second, frames)
     spread_1 = max_gap(snaps[RESUME_AT], snaps2[RESUME_AT])
     ate2 = evaluate.eval_trajectory(str(root / "again"), dataset)
-    print(f"phase 14 the same run again (the card's nondeterministic "
-          f"sums): {wall2:.1f} s, ATE rmse {ate2:.4f}; the window after "
-          f"frame {RESUME_AT} within {spread_1:.4e} units of the first "
-          f"run's, the final poses of frames {RESUME_AT}-{n_frames - 1} "
-          f"within {spread[0]:.4e} units / {spread[1]:.4e} deg", flush=True)
+    same = sorted(first) == sorted(second) and all(
+        np.array_equal(first[t], second[t]) for t in first)
+    print(f"phase 14 the same run again (runners.run.run inside "
+          f"utils.device.reproducible): {wall2:.1f} s, ATE rmse "
+          f"{ate2:.4f}; every keyframe pose "
+          f"{'bitwise equal to' if same else 'NOT equal to'} the first "
+          f"run's; the window after frame {RESUME_AT} within "
+          f"{spread_1:.4e} units of the first run's, the final poses of "
+          f"frames {RESUME_AT}-{n_frames - 1} within {spread[0]:.4e} units "
+          f"/ {spread[1]:.4e} deg", flush=True)
+    check(same and spread_1 == 0.0, "phase 14: the same run again did "
+          "not give the same poses bit for bit")
     del again
 
     # the session on disk is the last one saved: before frame RESUME_AT
@@ -3087,7 +3115,7 @@ def metric_session_phase(args, tk):
 # phase 15: the image-folder datasets, the threaded runners, the trainer
 # ---------------------------------------------------------------------------
 
-KITTI_FRAMES = 40           # frames of the written kitti_sync folder
+KITTI_FRAMES = 30           # frames of the written kitti_sync folder
 KITTI_DT = 0.1              # KITTI's 10 Hz camera
 MOBILE_FRAMES = 20          # frames fed to the mobile workers
 TRAIN_STEPS = 20            # steps of the trainer's loop
@@ -3178,15 +3206,17 @@ def kitti_cfg(folder, out):
 
 
 def agreement(tag, a, b, what):
-    """Keyframe timestamps two trackers share and their largest pose
-    gap, printed as a finding."""
+    """Keyframe timestamps two trackers share, whether their poses there
+    are bitwise equal and their largest pose gap, printed as a finding."""
     pa, pb = poses_by_ts(a), poses_by_ts(b)
     common = sorted(set(pa) & set(pb))
     dist, ang = pose_gap(pa, pb, common) if common else (float("nan"),) * 2
+    same = bool(common) and all(np.array_equal(pa[t], pb[t]) for t in common)
     print(f"{tag} keyframes against {what}: {len(common)} timestamps "
-          f"shared of {len(pa)} and {len(pb)}; largest pose gap over them "
-          f"{dist:.4e} units / {ang:.4e} deg (a finding: the card's "
-          f"index_add_ sums are not deterministic)", flush=True)
+          f"shared of {len(pa)} and {len(pb)}, the poses there "
+          f"{'bitwise equal' if same else 'not equal'}; largest pose gap "
+          f"over them {dist:.4e} units / {ang:.4e} deg (a finding)",
+          flush=True)
     return len(common)
 
 
@@ -3221,6 +3251,112 @@ def seen_camera(mapper, cams):
                                f"keyframe mapped at frame {idx}, {back} "
                                f"before the newest")
     fail("phase 15a: no trained keyframe's camera sees the final map")
+
+
+def stage_ms(timer, stage):
+    return 1e3 * timer.totals[stage] / max(timer.counts[stage], 1)
+
+
+SUMS_FRAME = 20             # 15a's BA sums are timed from this frame on
+
+
+def sorted_segment_sum(vals, idx, n):
+    """The deterministic alternative to ops/ba.py's `_scatter_rows`
+    (index_add_ into n + 1 rows, the last discarded) that torch does not
+    take: a stable argsort of the index, the segment bounds by
+    searchsorted, and one segment_reduce over the sorted rows."""
+    import torch
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.searchsorted(idx[order], torch.arange(
+        n + 2, device=idx.device))
+    return torch.segment_reduce(vals[order], "sum",
+                                lengths=bounds.diff(), axis=0)[:n]
+
+
+def time_ba_sums(calls, at):
+    """ms of one tracked frame's BA sums (the `_scatter_rows` calls
+    captured from 15a's frame `at`) by torch's index_add_ inside
+    utils.device.reproducible (its deterministic fallback), by
+    sorted_segment_sum, and by index_add_ outside it; the sorted sums
+    against index_add_ and against a second call."""
+    import torch
+    from vings_mono_tpu_torch.ops import ba as ba_ops
+    from vings_mono_tpu_torch.utils.device import reproducible
+
+    def all_calls(fn):
+        return [fn(v, i, n) for v, i, n in calls]
+    with reproducible():
+        want = all_calls(ba_ops._scatter_rows)
+        got = all_calls(sorted_segment_sum)
+        again = all_calls(sorted_segment_sum)
+        ms = {"index_add_ (deterministic)": cuda_ms(
+                  lambda: all_calls(ba_ops._scatter_rows), 20),
+              "sorted": cuda_ms(lambda: all_calls(sorted_segment_sum), 20)}
+    ms["index_add_ (atomics, no mode)"] = cuda_ms(
+        lambda: all_calls(ba_ops._scatter_rows), 20)
+    err = max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+              for g, w in zip(got, want))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    rows = sum(int(v.shape[0]) for v, _, _ in calls)
+    print(f"phase 15a the BA sums of frame {at} ({len(calls)} "
+          f"_scatter_rows calls, {rows} rows, "
+          f"{sum(v.numel() for v, _, _ in calls)} values), ms per frame: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; sorted against index_add_ {err:.3e} of the largest sum, "
+          f"{'bitwise equal' if same else 'NOT equal'} to a second call",
+          flush=True)
+    check(err < 1e-5 and same, "phase 15a: the sorted BA sums disagree")
+    return ms
+
+
+def determinism_cost(cfg, root, smi, timer, wall, tracker):
+    """15a again with `utils.device.reproducible` swapped for a null
+    context: frames/s, track ms per frame and map ms per keyframe beside
+    15a's (which ran first, with it), and the pose gap between the two;
+    then the BA sums of one of its tracked frames (`time_ba_sums`)."""
+    import torch
+    from vings_mono_tpu_torch.ops import ba as ba_ops
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.utils import device as device_mod
+    calls, frame = [], {"idx": 0, "at": None}
+    scatter = ba_ops._scatter_rows
+
+    def captured(vals, idx, n):
+        if frame["idx"] >= SUMS_FRAME and frame["at"] is None:
+            calls.append((vals.clone(), idx.clone(), n))
+        return scatter(vals, idx, n)
+
+    def on_frame(idx, *_):
+        # the first frame from SUMS_FRAME on that runs a BA
+        if calls and frame["at"] is None:
+            frame["at"] = idx
+        frame["idx"] = idx + 1
+    t0 = time.perf_counter()
+    with replaced(device_mod, "reproducible", contextlib.nullcontext), \
+            replaced(ba_ops, "_scatter_rows", captured):
+        tracker_n, mapper_n, timer_n = run_mod.run(
+            cfg, str(root / "run_nondeterministic"), sync_timer=True,
+            on_frame=on_frame)
+    torch.cuda.synchronize()
+    wall_n = time.perf_counter() - t0
+    del mapper_n
+    rows = {"with": (wall, timer), "without": (wall_n, timer_n)}
+    line = "; ".join(
+        f"{k}: {KITTI_FRAMES / w:.3f} frames/s, track "
+        f"{stage_ms(t, 'track'):.1f} ms per frame, map "
+        f"{stage_ms(t, 'map'):.1f} ms per keyframe (n={t.counts['map']})"
+        for k, (w, t) in rows.items())
+    cost = {s: 100 * (stage_ms(timer, s) / stage_ms(timer_n, s) - 1)
+            for s in ("track", "map")}
+    print(f"phase 15a the cost of utils.device.reproducible [{smi}] "
+          f"(15a with it, then the same run with a null context): {line}; "
+          f"map ms {cost['map']:+.1f} %, track ms {cost['track']:+.1f} %",
+          flush=True)
+    agreement("phase 15a without the context", tracker_n, tracker,
+              "15a's run")
+    check(frame["at"] is not None, f"phase 15a: no frame from {SUMS_FRAME} "
+          f"on ran a BA")
+    time_ba_sums(calls, frame["at"])
 
 
 def kitti_folder_phase(args, tk):
@@ -3319,6 +3455,7 @@ def kitti_folder_phase(args, tk):
     errs = kernels_on("phase 15a", [(label, mapper.state, c2w, intr)],
                       dict(mapper.bin_kwargs), args.seed + 80)
     del mapper
+    determinism_cost(cfg, root, smi, timer, wall_a, tracker_a)
 
     # ---- 15b: run_tracking on the same folder
     t0 = time.perf_counter()
@@ -3401,6 +3538,34 @@ def kitti_folder_phase(args, tk):
     return {"a": launch_a, "c": launch_c, "d": launch_d}, errs
 
 
+def named_grads(model):
+    """{name: gradient on the host}, zeros where a parameter has none."""
+    import torch
+    return {n: (p.grad if p.grad is not None
+                else torch.zeros_like(p)).cpu()
+            for n, p in model.named_parameters()}
+
+
+def card_against_cpu(tag, got):
+    """got {device: (loss, {name: gradient on the host})} for DEVICE and
+    the CPU -> (the loss's relative gap, the largest gradient gap over
+    each tensor's largest CPU magnitude, the tensors so held). A tensor
+    whose CPU gradient stays below TRAIN_NOISE of the largest of all is
+    held to that bound on the card too."""
+    (lc, gc), (lh, gh) = got[DEVICE], got["cpu"]
+    gmax = max(float(g.abs().max()) for g in gh.values())
+    worst, n_held = 0.0, 0
+    for n, g in gh.items():
+        scale = float(g.abs().max())
+        if scale < TRAIN_NOISE * gmax:
+            check(float(gc[n].abs().max()) < TRAIN_NOISE * gmax,
+                  f"{tag}: {n}'s gradient is not noise on the card")
+            continue
+        n_held += 1
+        worst = max(worst, float((gc[n] - g).abs().max()) / scale)
+    return abs(lc - lh) / abs(lh), worst, n_held
+
+
 def train_phase(args):
     """Phase 15e: the DROID trainer. One clip's loss and gradients, card
     against CPU; TRAIN_STEPS steps of train_droid's loop from the
@@ -3424,22 +3589,9 @@ def train_phase(args):
         if dev == DEVICE:
             torch.cuda.synchronize()
         secs[dev] = time.perf_counter() - t0
-        got[dev] = (float(loss.detach()),
-                    {n: (p.grad if p.grad is not None
-                         else torch.zeros_like(p)).cpu()
-                     for n, p in model.named_parameters()})
+        got[dev] = (float(loss.detach()), named_grads(model))
     (lc, gc), (lh, gh) = got[DEVICE], got["cpu"]
-    gmax = max(float(g.abs().max()) for g in gh.values())
-    worst, n_held = 0.0, 0
-    for n, g in gh.items():
-        scale = float(g.abs().max())
-        if scale < TRAIN_NOISE * gmax:
-            check(float(gc[n].abs().max()) < TRAIN_NOISE * gmax,
-                  f"phase 15e: {n}'s gradient is not noise on the card")
-            continue
-        n_held += 1
-        worst = max(worst, float((gc[n] - g).abs().max()) / scale)
-    loss_rel = abs(lc - lh) / abs(lh)
+    loss_rel, worst, n_held = card_against_cpu("phase 15e", got)
     print(f"phase 15e trainer card vs CPU [{smi}] on one clip (P "
           f"{train_droid.P}, {train_droid.H}x{train_droid.W}, "
           f"{TRAIN_UNROLL} unrolled steps, true f32): loss {lc:.6f} vs "
@@ -3489,6 +3641,145 @@ def train_phase(args):
           f"moved up to {moved:.3e} from the start", flush=True)
     check(same, "phase 15e: the checkpoint did not load back bitwise")
     check(moved > 0.0, "phase 15e: the training moved nothing")
+
+
+RECIPE_STEPS = 3            # steps of each recipe's repeated run
+
+
+def recipe_specs(seed):
+    """Per self-training recipe: (module, shipped weights, loss_of(model,
+    device) on one batch made on the host from `seed`, the samples of a
+    fixed pool, load(path) -> the state_dict a checkpoint loads as)."""
+    import torch
+    from vings_mono_tpu_torch.models.dpt_depth import load_dpt
+    from vings_mono_tpu_torch.models.fastsam import load_fastsam
+    from vings_mono_tpu_torch.models.lightglue import load_lightglue
+    from vings_mono_tpu_torch.models.superpoint import load_superpoint
+    from vings_mono_tpu_torch.runners import (train_fastsam,
+                                              train_lightglue,
+                                              train_metric_depth,
+                                              train_superpoint)
+    rng = np.random.default_rng(seed)
+    sp = train_superpoint
+    pairs = [sp.random_pair(rng) for _ in range(8)]
+    sp_batch = sp.stack_pairs(pairs[:sp.BS_PAIRS])
+
+    def sp_loss(model, dev):
+        table = torch.as_tensor(sp.target_table(), device=dev)
+        return sp.superpoint_loss(model, sp.to_batch(sp_batch, dev), table)
+    lg = train_lightglue
+    views = [lg.sample_views(rng) for _ in range(4)]
+    # the frozen SuperPoint's keypoints from the host: both devices see
+    # the same inputs
+    lg_in = lg.pair_inputs(load_superpoint(lg.SUPERPOINT), views[0], "cpu")
+    fs = train_fastsam
+    comps = [fs.sample(rng) for _ in range(4)]
+    md = train_metric_depth
+    rooms = [md.sample(rng) for _ in range(4)]
+    return {
+        "superpoint": (sp, "superpoint_selftrained.npz", sp_loss, pairs,
+                       lambda p: load_superpoint(p).state_dict()),
+        "lightglue": (lg, "lightglue_selftrained.npz",
+                      lambda m, dev: lg.lightglue_loss(
+                          m, *(x.to(dev) for x in lg_in)), views,
+                      lambda p: load_lightglue(p).state_dict()),
+        "fastsam": (fs, "fastsam_selftrained.npz",
+                    lambda m, dev: fs.fastsam_loss(
+                        m, *fs.to_batch(comps, dev)), comps,
+                    lambda p: load_fastsam(p).state_dict()),
+        "metric_depth": (md, "metric_depth_selftrained.npz",
+                         lambda m, dev: md.depth_loss(
+                             m, *md.to_batch(rooms, dev)), rooms,
+                         lambda p: load_dpt(p, device="cpu")[0]
+                         .state_dict()),
+    }
+
+
+def recipe_phase(args):
+    """Phase 15e, the self-training recipes of SuperPoint, LightGlue,
+    FastSAM and the DPT metric-depth net: per recipe one batch's loss and
+    gradients card against CPU from the shipped weights; TRAIN_STEPS
+    steps of its runner's `train` from them (s/step, peak memory); the
+    checkpoint loaded back bitwise; RECIPE_STEPS steps on a fixed pool
+    twice, bitwise equal."""
+    import torch
+    from vings_mono_tpu_torch.runners.self_training import SamplePool
+    from vings_mono_tpu_torch.utils.device import reproducible, true_f32
+    smi = nvidia_smi()
+    out_dir = OUT / "train"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for k, (name, (mod, wname, loss_of, items, load)) in enumerate(
+            recipe_specs(args.seed + 72).items()):
+        tag = f"phase 15e train_{name}"
+        weights = str(WEIGHTS_DIR / wname)
+        got, secs = {}, {}
+        for dev in (DEVICE, "cpu"):
+            model = mod.build_model(weights, dev)
+            t0 = time.perf_counter()
+            with reproducible(), true_f32():
+                loss, _ = loss_of(model, dev)
+                loss.backward()
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+            got[dev] = (float(loss.detach()), named_grads(model))
+        loss_rel, worst, n_held = card_against_cpu(tag, got)
+        print(f"{tag} card vs CPU [{smi}] on one batch at the recipe's "
+              f"shapes: loss {got[DEVICE][0]:.6f} vs {got['cpu'][0]:.6f} "
+              f"(relative {loss_rel:.3e}, tolerance {TRAIN_LOSS_REL}); "
+              f"gradients of {n_held} tensors within {worst:.3e} of their "
+              f"largest magnitude (tolerance {TRAIN_GRAD_REL}); forward + "
+              f"backward {secs[DEVICE]:.2f} s on the card (first call), "
+              f"{secs['cpu']:.2f} s on the CPU", flush=True)
+        check(loss_rel <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL,
+              f"{tag}: the card left the CPU")
+
+        out = out_dir / f"{name}_trained.npz"
+        stamps, applied = [], []
+
+        def on_step(it, loss, ok):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            applied.append(ok)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model, hist = mod.train(TRAIN_STEPS, str(out), resume=weights,
+                                device=DEVICE, seed=args.seed + 73 + k,
+                                log_every=10, on_step=on_step)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        steps_s = np.diff(stamps)
+        losses = [h[0] for h in hist]
+        print(f"{tag} [{smi}]: {TRAIN_STEPS} steps from {wname}: the pool "
+              f"filled and the first step done {stamps[0] - t0:.2f} s after "
+              f"the start, then {np.mean(steps_s):.4f} s/step (median "
+              f"{np.median(steps_s):.4f}), peak memory {peak:.3f} GB above "
+              f"what was allocated before, steps "
+              f"applied {sum(applied)}/{TRAIN_STEPS}; losses "
+              f"{['%.4f' % x for x in losses]}", flush=True)
+        check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"{tag}: a training loss is not finite")
+        back, start = load(str(out)), load(weights)
+        state = {n: p.cpu() for n, p in model.state_dict().items()}
+        same = sorted(back) == sorted(state) and all(
+            torch.equal(state[n], back[n]) for n in state)
+        moved = max(float((state[n] - start[n]).abs().max()) for n in state)
+        runs = []
+        for run in range(2):
+            m, _ = mod.train(RECIPE_STEPS, str(out_dir / f"{name}_{run}.npz"),
+                             resume=weights, device=DEVICE,
+                             pool=SamplePool.fixed(items), log_every=10)
+            runs.append({n: p.cpu() for n, p in m.state_dict().items()})
+        equal = all(torch.equal(runs[0][n], runs[1][n]) for n in runs[0])
+        print(f"{tag} checkpoint {out.name}: {out.stat().st_size / 1e6:.1f} "
+              f"MB, loaded back {'bitwise equal' if same else 'NOT equal'}; "
+              f"the parameters moved up to {moved:.3e} from the start; "
+              f"{RECIPE_STEPS} steps on a fixed pool of {len(items)} twice: "
+              f"parameters {'bitwise equal' if equal else 'NOT equal'}",
+              flush=True)
+        check(same, f"{tag}: the checkpoint did not load back bitwise")
+        check(moved > 0.0, f"{tag}: the training moved nothing")
+        check(equal, f"{tag}: two identical runs parted")
 
 
 # ---------------------------------------------------------------------------
@@ -3668,7 +3959,8 @@ def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mapper, records = run_mapping.run(
-        dict(cfg, parallel=parallel), str(OUT / f"run_dp_{label}"))
+        dict(cfg, parallel=parallel), str(OUT / f"run_dp_{label}"),
+        max_windows=REPLAY_WINDOWS)
     run_s = time.perf_counter() - t0
     g = mapper.group
     ranks = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
@@ -4089,7 +4381,7 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--vo-frames", type=int, default=70,
                    help="camera frames of phase 7")
-    p.add_argument("--vio-frames", type=int, default=100,
+    p.add_argument("--vio-frames", type=int, default=60,
                    help="camera frames of phase 8")
     args = p.parse_args(argv)
 
@@ -4097,7 +4389,10 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    device = torch.device(DEVICE)
+    from vings_mono_tpu_torch.utils.device import resolve_device
+    # before the first cuBLAS call: the runners' reproducible mode needs
+    # cuBLAS's workspace fixed
+    device = resolve_device(DEVICE)
     from vings_mono_tpu_torch.utils import cuda_build
     from vings_mono_tpu_torch.utils.config import load_config
     from vings_mono_tpu_torch.mapper.state import adam_init, empty_state
@@ -4286,6 +4581,7 @@ def main(argv=None):
     # then the trainer
     folder_launches, main_errs = kitti_folder_phase(args, tk)
     train_phase(args)
+    recipe_phase(args)
     # ---- 16. data parallelism over the keyframe window
     dp_launches, dp_errs = dp_phase(args, tk, cfg, float(np.mean(kf_ms)),
                                     records[-1]["psnr"], smoke_stats)

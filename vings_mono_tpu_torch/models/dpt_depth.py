@@ -13,7 +13,8 @@ initialises it on.
 
 Flax's conventions kept here: LayerNorm eps 1e-6, the tanh GELU, attention
 scaled by 1/sqrt(head_dim), and `jax.image.resize`'s bilinear, which
-antialiases when it downsamples (`F.interpolate(..., antialias=True)`).
+antialiases when it downsamples (`F.interpolate(..., antialias=True)`;
+upsampling is written as gathers, `resize`).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device, true_f32
-from .flax_weights import lecun_init_, load_pickled_params, \
-    state_dict_from_flax
+from .flax_weights import (flax_tree_from_state_dict, lecun_init_,
+                           load_pickled_params, state_dict_from_flax)
 
 ATTN = "MultiHeadDotProductAttention_0"
 
@@ -107,12 +108,33 @@ class DPTDepth(nn.Module):
         return F.softplus(self.head2(y))[:, 0]
 
 
+def _upsample_axis(x, dim, n):
+    """Axis `dim` of x linearly resampled to n >= its size at half-pixel
+    centres, clamped at the edges, as two gathers (interpolate's and
+    grid_sample's backward have no deterministic CUDA form; a gather's
+    has)."""
+    n_in = x.shape[dim]
+    src = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
+           * (n_in / n) - 0.5).clamp(min=0.0)
+    i0 = src.long().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    shape = [1] * x.ndim
+    shape[dim] = n
+    lam = (src - i0).reshape(shape)
+    return (x.index_select(dim, i0) * (1.0 - lam)
+            + x.index_select(dim, i1) * lam)
+
+
 def resize(x, size):
     """`jax.image.resize(..., "bilinear")` over the last two axes of an
-    NCHW tensor: half-pixel centres, antialiased when it downsamples."""
-    down = size[0] < x.shape[-2] or size[1] < x.shape[-1]
-    return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
-                         antialias=down)
+    NCHW tensor: half-pixel centres, antialiased when it downsamples (as
+    `F.interpolate`, forward only), by gathers when it upsamples, so that
+    the trainer differentiates it deterministically."""
+    if size[0] < x.shape[-2] or size[1] < x.shape[-1]:
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False, antialias=True)
+    return _upsample_axis(_upsample_axis(x, x.ndim - 1, size[1]),
+                          x.ndim - 2, size[0])
 
 
 def dpt_state_dict(params):
@@ -134,6 +156,26 @@ def dpt_state_dict(params):
             sub[ATTN] = attn
         tree[name] = sub
     return state_dict_from_flax(tree, renames={"scale": "weight"})
+
+
+def dpt_flax_tree(model, sd=None):
+    """The inverse of `dpt_state_dict`: the module's parameters (or `sd`,
+    tensors by the same names, its gradients say) as the flax DPTDepth
+    params tree, the attention's dense kernels reshaped to (dim, heads,
+    head_dim) for query, key and value and (heads, head_dim, dim) for
+    out, their biases to (heads, head_dim) and (dim,)."""
+    tree = flax_tree_from_state_dict(model.state_dict() if sd is None
+                                     else sd)
+    for i in range(model.depth):
+        heads = getattr(model, f"block{i}").heads
+        for k, leaf in tree[f"block{i}"][ATTN].items():
+            kern = leaf["kernel"]
+            if k == "out":
+                leaf["kernel"] = kern.reshape(heads, -1, kern.shape[-1])
+            else:
+                leaf["kernel"] = kern.reshape(kern.shape[0], heads, -1)
+                leaf["bias"] = leaf["bias"].reshape(heads, -1)
+    return tree
 
 
 def load_dpt(weights_path=None, device=None, generator=None):

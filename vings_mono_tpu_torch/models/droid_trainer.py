@@ -155,7 +155,7 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
-CLIP_NORM = 1.0        # global-norm clipping of the gradients
+CLIP_NORM = 1.0        # global-norm clipping (FastSAM's recipe: 5.0)
 WEIGHT_DECAY = 1e-5
 
 
@@ -173,10 +173,10 @@ def make_optimizer(model, lr, steps):
         opt, lambda count: sched(count) / lr)
 
 
-def apply_gradients(optimizer, scheduler, loss=None):
+def apply_gradients(optimizer, scheduler, loss=None, clip_norm=CLIP_NORM):
     """One optimizer step on the gradients in the parameters' `.grad`
     (a parameter without one is left out): clipping to a global norm of
-    CLIP_NORM, the optimizer, the scheduler. Skip-on-nonfinite: when
+    `clip_norm`, the optimizer, the scheduler. Skip-on-nonfinite: when
     `loss` or any gradient is not finite nothing changes, and neither the
     optimizer's nor the schedule's count advances. Returns whether the
     step was applied (a host sync)."""
@@ -187,26 +187,42 @@ def apply_gradients(optimizer, scheduler, loss=None):
         finite.append(torch.isfinite(loss).all())
     if not bool(torch.stack(finite).all()):
         return False
-    clip_by_global_norm_(grads, CLIP_NORM)
+    clip_by_global_norm_(grads, clip_norm)
     optimizer.step()
     scheduler.step()
     return True
 
 
-def make_train_step(model, optimizer, scheduler, num_steps=6):
-    """A train step over the unrolled forward: loss and gradients in true
-    f32, then `apply_gradients`. A single blown-up clip (ill-conditioned
-    BA on a large-baseline sample) must not poison the parameters or the
-    Adam moments, so a step with a non-finite loss or gradient changes
-    nothing. step(batch) returns (loss, whether the step was applied)."""
+def make_loss_step(loss_fn, optimizer, scheduler, clip_norm=CLIP_NORM):
+    """A train step of any loss: loss_fn(batch) -> (loss, diagnostics),
+    its gradients in true f32, then `apply_gradients`. A step with a
+    non-finite loss or gradient changes nothing. step(batch) returns
+    (loss, diagnostics, whether the step was applied)."""
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         with true_f32():
-            loss = droid_training_loss(model, batch, num_steps=num_steps)
+            loss, aux = loss_fn(batch)
             loss.backward()
-        good = apply_gradients(optimizer, scheduler, loss.detach())
+        good = apply_gradients(optimizer, scheduler, loss.detach(),
+                               clip_norm)
         optimizer.zero_grad(set_to_none=True)
-        return loss.detach(), good
+        return loss.detach(), aux, good
 
     return step
+
+
+def make_train_step(model, optimizer, scheduler, num_steps=6):
+    """A train step over the unrolled forward (`make_loss_step`). A single
+    blown-up clip (ill-conditioned BA on a large-baseline sample) must not
+    poison the parameters or the Adam moments. step(batch) returns (loss,
+    whether the step was applied)."""
+    step = make_loss_step(
+        lambda b: (droid_training_loss(model, b, num_steps=num_steps), ()),
+        optimizer, scheduler)
+
+    def droid_step(batch):
+        loss, _, good = step(batch)
+        return loss, good
+
+    return droid_step

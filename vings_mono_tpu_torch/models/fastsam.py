@@ -32,15 +32,17 @@ REG_MAX = 16          # DFL bins per box side
 
 
 class FrozenBN(nn.Module):
-    """Inference-only batch norm with all four statistics as buffers, eps
-    1e-3 (ultralytics')."""
+    """Batch norm without running statistics, eps 1e-3 (ultralytics'). All
+    four statistics are parameters, as in the JAX package's flax tree:
+    its trainer (`runners/train_fastsam.py`) moves and decays `mean` and
+    `var` with the rest."""
 
     def __init__(self, ch):
         super().__init__()
-        self.register_buffer("scale", torch.ones(ch))
-        self.register_buffer("bias", torch.zeros(ch))
-        self.register_buffer("mean", torch.zeros(ch))
-        self.register_buffer("var", torch.ones(ch))
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.mean = nn.Parameter(torch.zeros(ch))
+        self.var = nn.Parameter(torch.ones(ch))
 
     def forward(self, x):
         s = self.scale * torch.rsqrt(self.var + 1e-3)
@@ -107,7 +109,11 @@ class SPPF(nn.Module):
 
 
 def _upsample2(x):
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest 2x upsampling, an exact repeat; as an expand, whose
+    backward is a plain sum (repeat_interleave's is a scatter)."""
+    B, C, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(B, C, h, 2, w, 2).reshape(
+        B, C, 2 * h, 2 * w)
 
 
 class FastSAM(nn.Module):

@@ -67,6 +67,31 @@ def flax_from_state_dict(sd) -> Dict[str, np.ndarray]:
     return flat
 
 
+def flax_tree_from_state_dict(sd):
+    """The inverse of `state_dict_from_flax` for a nested `params` tree:
+    a torch state_dict -> a nested dict of f32 numpy arrays, `weight` as
+    flax's `kernel` (transposed as in `flax_from_state_dict`) and a 1-D
+    `weight` (a LayerNorm's) as flax's `scale`."""
+    tree = {}
+    for key, v in flax_from_state_dict(sd).items():
+        path = key.split("/")[1:]
+        if path[-1] == "kernel" and v.ndim == 1:
+            path[-1] = "scale"
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def save_pickled_params(path, tree, arch=None):
+    """Write a nested `params` tree, and an `arch` dict when given, as the
+    JAX package's object-pickled `.npz` (what its trainers write and
+    `load_pickled_params` reads)."""
+    extra = {} if arch is None else {"arch": np.asarray(arch, dtype=object)}
+    np.savez(path, params=np.asarray(tree, dtype=object), **extra)
+
+
 def load_pickled_params(path):
     """The pickled `params` tree of a JAX package `.npz` and its `arch`
     entry ({} when absent), as numpy arrays."""

@@ -70,6 +70,7 @@ from ..mapper.train import KeyframeBatch, bin_rows, train_loop
 from ..ops.rasterizer import TILE, BinnedScene, render
 from ..ops.rasterizer import tile_kernel
 from ..ops.rasterizer.render import IMPLS, band_camera
+from ..utils.device import read_deterministic, write_deterministic
 
 DEFAULT_TIMEOUT_S = 600.0   # bound of one collective and of the group's start
 POLL_S = 0.2                # liveness polling period while waiting
@@ -195,14 +196,17 @@ def _launch_counts():
 
 
 def _numeric_mode():
-    """The process-wide settings a follower copies from the leader."""
+    """The process-wide settings a follower copies from the leader: TF32,
+    the deterministic algorithms (`utils.device.reproducible`), threads."""
     return (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32, torch.get_num_threads())
+            torch.backends.cudnn.allow_tf32, read_deterministic(),
+            torch.get_num_threads())
 
 
 def _set_numeric_mode(mode):
     (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-     threads) = mode
+     deterministic, threads) = mode
+    write_deterministic(deterministic)
     torch.set_num_threads(threads)
 
 

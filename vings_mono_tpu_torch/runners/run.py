@@ -132,7 +132,16 @@ def run(cfg, save_dir, max_frames=None, on_frame=None, resume=None,
     checkpoint_every: save the session to save_dir/session before every
     N-th frame (stage `checkpoint`). sync_timer: end each timed stage with
     a device synchronize, so the stage times hold the device work (slower:
-    it stops the host from running ahead)."""
+    it stops the host from running ahead). The run is reproducible
+    (`utils.device.reproducible`)."""
+    from ..utils.device import reproducible
+    with reproducible():
+        return _run(cfg, save_dir, max_frames, on_frame, resume,
+                    checkpoint_every, start_frame, device, sync_timer)
+
+
+def _run(cfg, save_dir, max_frames, on_frame, resume, checkpoint_every,
+         start_frame, device, sync_timer):
     from ..middleware import judge_and_package, retrieve_to_tracker
     from ..utils.checkpoint import load_session, save_session
     from ..utils.profiling import StageTimer

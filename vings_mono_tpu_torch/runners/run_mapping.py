@@ -19,16 +19,19 @@ def run(cfg, save_dir, max_windows=None, device=None):
     """Map every window; returns (mapper, records) with one record per
     window: wall ms, n_alive, the train PSNR of the first and the last
     iteration, the last iteration's loss, whether every iteration's loss
-    was finite, and the pair bucket."""
+    was finite, and the pair bucket. The run is reproducible
+    (`utils.device.reproducible`)."""
     from ..datasets.replay import ReplayDataset
     from ..mapper.mapper import GaussianMapper
+    from ..utils.device import reproducible
 
-    dataset = ReplayDataset(cfg)
-    mapper = GaussianMapper(cfg, device=device)
-    try:
-        records = _map_windows(dataset, mapper, save_dir, max_windows)
-    finally:
-        mapper.close()
+    with reproducible():
+        dataset = ReplayDataset(cfg)
+        mapper = GaussianMapper(cfg, device=device)
+        try:
+            records = _map_windows(dataset, mapper, save_dir, max_windows)
+        finally:
+            mapper.close()
     return mapper, records
 
 

@@ -15,7 +15,9 @@ import os
 
 def run(cfg, save_dir, max_frames=None, ply_every=300, device=None):
     """`runners.run.run` that writes ply/map_<idx>_3dgs.ply after every
-    `ply_every`-th frame once the map exists. Returns run's result."""
+    `ply_every`-th frame once the map exists. Returns run's result. The
+    run is reproducible (`utils.device.reproducible`, entered by
+    `runners.run.run`)."""
     from .run import run as run_all
 
     def on_frame(idx, tracker, mapper, viz_out):

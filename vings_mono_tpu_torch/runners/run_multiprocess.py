@@ -48,8 +48,10 @@ def worker_stream(device):
 
 class Workers:
     """Threads of one pipeline. Each runs its function under its own CUDA
-    stream; the first exception stops the others (`stop`) and `join`
-    raises it in the calling thread."""
+    stream and inside `utils.device.reproducible` (each op is
+    deterministic; what is mapped still depends on the backpressure); the
+    first exception stops the others (`stop`) and `join` raises it in the
+    calling thread."""
 
     def __init__(self):
         self.threads = []
@@ -60,8 +62,9 @@ class Workers:
         """Run fn() in a thread on `device`'s stream; on_exit() runs after
         it however it ends (a queue's end sentinel)."""
         def body():
+            from ..utils.device import reproducible
             try:
-                with worker_stream(device):
+                with reproducible(), worker_stream(device):
                     fn()
             except Exception as e:   # raised again by join()
                 self.errors.append(e)

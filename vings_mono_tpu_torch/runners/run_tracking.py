@@ -19,7 +19,14 @@ import os
 
 
 def run(cfg, save_dir, max_frames=None, device=None):
-    """Track the dataset's frames; returns the tracker."""
+    """Track the dataset's frames, reproducibly
+    (`utils.device.reproducible`); returns the tracker."""
+    from ..utils.device import reproducible
+    with reproducible():
+        return _run(cfg, save_dir, max_frames, device)
+
+
+def _run(cfg, save_dir, max_frames, device):
     from ..datasets.base import get_dataset
     from ..datasets.replay import save_viz_out
     from ..middleware import judge_and_package, to_host

@@ -144,7 +144,17 @@ def train(steps, out, lr=2e-4, num_steps=8, ckpt_every=250, resume=None,
           device=None, seed=1234, log_every=25, on_step=None):
     """The training loop: `steps` optimizer steps on producer clips,
     checkpoints every `ckpt_every` steps and at the end. on_step(it, loss,
-    applied) is called after every step. Returns (model, losses)."""
+    applied) is called after every step. Returns (model, losses). The
+    run is reproducible (`utils.device.reproducible`) but for the order
+    in which the producer's clips arrive, which is fixed by its seed."""
+    from ..utils.device import reproducible
+    with reproducible():
+        return _train(steps, out, lr, num_steps, ckpt_every, resume,
+                      device, seed, log_every, on_step)
+
+
+def _train(steps, out, lr, num_steps, ckpt_every, resume, device, seed,
+           log_every, on_step):
     from ..models.droid_net import save_droid_weights
     from ..models.droid_trainer import make_optimizer, make_train_step
     from ..utils.device import resolve_device
