@@ -66,7 +66,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      (the KITTI-360 save_buffer) with GlobalBA's band and CG settings: ms
      per Gauss-Newton step, CG iterations, peak memory;
  11. phase 4's replay once each with `use_sky` and `coarse_frac` 0.5
-     (its first 3 windows) and `use_refine` (all 5, one keyframe's pose
+     (its first 2 windows) and `use_refine` (all 5, one keyframe's pose
      perturbed by a known SE3):
      keyframe times against phase 4's, PSNR, both kernels against their
      plain twins on the sky sphere's pairs and at 120x400, and refine's
@@ -116,18 +116,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      weights set): stage times, frames/s, host ms per `dataset[idx]`
      (370x1226 -> 240x800), ATE against pose/, launches, and both kernels
      against their plain twins on the final map under the newest
-     keyframe's camera; then (a) once more with `reproducible` swapped
-     for a null context: frames/s, track and map ms beside (a)'s, and the
-     BA sums of one tracked frame timed by torch's deterministic
-     index_add_, by a sorted segment sum and by index_add_ without the
-     mode; (b) `runners.run_tracking.run` on the folder,
+     keyframe's camera (what `reproducible` costs is measured by
+     `profile_reproducible.py`); (b) `runners.run_tracking.run` on the
+     folder,
      keyframes and pose gap against (a) as findings; (c)
      `runners.run_multiprocess.run`: frames/s beside (a), windows mapped
      and dropped, the tracker against (b), the .ply, the TF32 flags equal
      before and after; (d) the mobile workers of
      `run_multiprocess_mobile` on 20 frames from a feeder thread in the
      server's place, one finite render per mapped window; (e) the DROID
-     trainer: one clip's loss and gradients card against CPU, 20 steps of
+     trainer: one clip's loss and gradients card against CPU, 10 steps of
      `runners.train_droid`'s loop from the repository's weights (s/step,
      peak memory, losses) and the checkpoint loaded back bitwise; then
      the same for the self-training recipes of SuperPoint, LightGlue,
@@ -141,7 +139,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      `parallel.mesh.sharded_tile_grads` on tests/test_parallel.py's scene
      scaled to 240x800 (K = 8) against dp = 1 on the card and against the
      CPU plain path, both kernels against their twins on rank 1's inputs;
-     (b) phase 4's first 3 windows through GaussianMapper with `parallel`, the
+     (b) phase 4's first 2 windows through GaussianMapper with `parallel`, the
      ranks' state digests compared after every call: ms per keyframe and
      the collectives' host ms per iteration beside phase 4's, PSNR, peak
      memory and launches per rank; (c) smoke.yaml's first 20 frames
@@ -157,7 +155,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      __graft_entry__.py's dryrun scene (32x32, K = 4) for naive and tile
      against the whole-image step; (c) GaussianMapper with `mapper.impl:
      naive` on three windows at 48x80, card against CPU per keyframe, no
-     tile kernel launched.
+     tile kernel launched;
+ 18. the evaluation entry points (`runners.eval_superpoint`, `eval_droid`,
+     `eval_track_long`, `eval_loop_e2e`, `eval_long_run`) at reduced
+     depth: 3 room pairs; 16 frames per lane; 24 frames at grid 2x1; 48
+     frames of the loop and of the long run, each without its no-loop
+     baseline. Each result has its JAX script's keys and finite ATEs; the
+     loop run's and the long run's tracker, mapper and detector sit on the
+     card, the kernels launched on every training iteration, and both
+     kernels are held against their plain twins on each run's final map
+     under its last mapped keyframe's camera.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`), and its runners
 and trainers enter `utils.device.reproducible` themselves.
@@ -2173,9 +2180,9 @@ def banded_at_scale(be, h, w):
 # ---------------------------------------------------------------------------
 
 REFINE_KF = 2      # the keyframe whose pose phase 11 perturbs
-# phase 11's sky and coarse runs and 16b replay the first 3 of phase 4's 5
-# windows (all 5 until PR 11, cut to keep the script inside its time)
-REPLAY_WINDOWS = 3
+# phase 11's sky and coarse runs and 16b replay the first 2 of phase 4's 5
+# windows (cut to keep the script inside its time)
+REPLAY_WINDOWS = 2
 REFINE_PERT = (0.03, -0.02, 0.025, 0.004, -0.003, 0.002)   # SE3 tangent
 
 
@@ -2573,35 +2580,6 @@ def run_quality(tag, cfg, save_dir, tracker, mapper, run_s):
 # phase 13: the learned nets and the rectification, card against CPU
 # ---------------------------------------------------------------------------
 
-def room_pair(rng, h, w, room=4.0):
-    """Two views of the procedural room with a revisit's viewpoint change
-    (~0.5 units of baseline, ~20 degrees of yaw): rgb, depth and c2w of
-    each, and the intrinsics."""
-    from vings_mono_tpu_torch.datasets.synthetic3d import (render_room,
-                                                           texture_params)
-    f = rng.uniform(0.9, 1.1) * w * 0.75
-    intr4 = np.asarray([f, f, w / 2, h / 2], np.float32)
-    tex = texture_params(int(rng.integers(1 << 31)), sharpness=1.0)
-
-    def c2w_of(pos, yaw, pitch):
-        cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), \
-            np.sin(pitch)
-        m = np.eye(4)
-        m[:3, :3] = np.asarray([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]) @ \
-            np.asarray([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
-        m[:3, 3] = pos
-        return m
-
-    pos = rng.uniform(-0.4, 0.4, 3) * room
-    yaw, pitch = rng.uniform(-np.pi, np.pi), rng.uniform(-0.3, 0.3)
-    a = c2w_of(pos, yaw, pitch)
-    b = c2w_of(pos + rng.normal(size=3) * 0.55, yaw + rng.normal() * 0.35,
-               np.clip(pitch + rng.normal() * 0.12, -0.4, 0.4))
-    views = [render_room(c, intr4, h, w, room, tex=tex) + (c,)
-             for c in (a, b)]
-    return views, intr4
-
-
 def matched_set(kp_a, kp_b):
     return {tuple(np.round(np.r_[p, q], 3)) for p, q in zip(kp_a, kp_b)}
 
@@ -2613,6 +2591,8 @@ def detector_phase(seed, n_pairs=3, h=240, w=320):
     import torch
     from vings_mono_tpu_torch.loop.detect import LoopDetector
     from vings_mono_tpu_torch.models.superpoint import extract
+    from vings_mono_tpu_torch.runners.eval_superpoint import \
+        _pair as room_pair
     sp = str(WEIGHTS_DIR / "superpoint_selftrained.npz")
     lg = str(WEIGHTS_DIR / "lightglue_selftrained.npz")
     dets = {dev: LoopDetector({}, sp, lg_params_path=lg, device=dev)
@@ -2621,8 +2601,7 @@ def detector_phase(seed, n_pairs=3, h=240, w=320):
     rng = np.random.default_rng(seed)
     chain_ms, ok = [], 0
     for k in range(n_pairs):
-        ((rgb_a, dep_a, c2w_a), (rgb_b, _, c2w_b)), intr4 = room_pair(
-            rng, h, w)
+        rgb_a, dep_a, c2w_a, rgb_b, _, c2w_b, intr4 = room_pair(rng, h, w)
         # the net's maps at the detector's input (512 wide), card vs CPU
         gray = np.asarray(rgb_a) @ np.asarray([0.299, 0.587, 0.114])
         hh = int(round(h * 512.0 / w / 8)) * 8
@@ -3118,7 +3097,7 @@ def metric_session_phase(args, tk):
 KITTI_FRAMES = 30           # frames of the written kitti_sync folder
 KITTI_DT = 0.1              # KITTI's 10 Hz camera
 MOBILE_FRAMES = 20          # frames fed to the mobile workers
-TRAIN_STEPS = 20            # steps of the trainer's loop
+TRAIN_STEPS = 10            # steps of the trainer's loop
 TRAIN_UNROLL = 8            # train_droid's --num-steps default
 # card vs CPU on one training clip: the loss to 1e-4 relative; each
 # parameter's gradient to 1e-2 of its own largest magnitude (8 unrolled
@@ -3253,112 +3232,6 @@ def seen_camera(mapper, cams):
     fail("phase 15a: no trained keyframe's camera sees the final map")
 
 
-def stage_ms(timer, stage):
-    return 1e3 * timer.totals[stage] / max(timer.counts[stage], 1)
-
-
-SUMS_FRAME = 20             # 15a's BA sums are timed from this frame on
-
-
-def sorted_segment_sum(vals, idx, n):
-    """The deterministic alternative to ops/ba.py's `_scatter_rows`
-    (index_add_ into n + 1 rows, the last discarded) that torch does not
-    take: a stable argsort of the index, the segment bounds by
-    searchsorted, and one segment_reduce over the sorted rows."""
-    import torch
-    order = torch.argsort(idx, stable=True)
-    bounds = torch.searchsorted(idx[order], torch.arange(
-        n + 2, device=idx.device))
-    return torch.segment_reduce(vals[order], "sum",
-                                lengths=bounds.diff(), axis=0)[:n]
-
-
-def time_ba_sums(calls, at):
-    """ms of one tracked frame's BA sums (the `_scatter_rows` calls
-    captured from 15a's frame `at`) by torch's index_add_ inside
-    utils.device.reproducible (its deterministic fallback), by
-    sorted_segment_sum, and by index_add_ outside it; the sorted sums
-    against index_add_ and against a second call."""
-    import torch
-    from vings_mono_tpu_torch.ops import ba as ba_ops
-    from vings_mono_tpu_torch.utils.device import reproducible
-
-    def all_calls(fn):
-        return [fn(v, i, n) for v, i, n in calls]
-    with reproducible():
-        want = all_calls(ba_ops._scatter_rows)
-        got = all_calls(sorted_segment_sum)
-        again = all_calls(sorted_segment_sum)
-        ms = {"index_add_ (deterministic)": cuda_ms(
-                  lambda: all_calls(ba_ops._scatter_rows), 20),
-              "sorted": cuda_ms(lambda: all_calls(sorted_segment_sum), 20)}
-    ms["index_add_ (atomics, no mode)"] = cuda_ms(
-        lambda: all_calls(ba_ops._scatter_rows), 20)
-    err = max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
-              for g, w in zip(got, want))
-    same = all(torch.equal(g, a) for g, a in zip(got, again))
-    rows = sum(int(v.shape[0]) for v, _, _ in calls)
-    print(f"phase 15a the BA sums of frame {at} ({len(calls)} "
-          f"_scatter_rows calls, {rows} rows, "
-          f"{sum(v.numel() for v, _, _ in calls)} values), ms per frame: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-          + f"; sorted against index_add_ {err:.3e} of the largest sum, "
-          f"{'bitwise equal' if same else 'NOT equal'} to a second call",
-          flush=True)
-    check(err < 1e-5 and same, "phase 15a: the sorted BA sums disagree")
-    return ms
-
-
-def determinism_cost(cfg, root, smi, timer, wall, tracker):
-    """15a again with `utils.device.reproducible` swapped for a null
-    context: frames/s, track ms per frame and map ms per keyframe beside
-    15a's (which ran first, with it), and the pose gap between the two;
-    then the BA sums of one of its tracked frames (`time_ba_sums`)."""
-    import torch
-    from vings_mono_tpu_torch.ops import ba as ba_ops
-    from vings_mono_tpu_torch.runners import run as run_mod
-    from vings_mono_tpu_torch.utils import device as device_mod
-    calls, frame = [], {"idx": 0, "at": None}
-    scatter = ba_ops._scatter_rows
-
-    def captured(vals, idx, n):
-        if frame["idx"] >= SUMS_FRAME and frame["at"] is None:
-            calls.append((vals.clone(), idx.clone(), n))
-        return scatter(vals, idx, n)
-
-    def on_frame(idx, *_):
-        # the first frame from SUMS_FRAME on that runs a BA
-        if calls and frame["at"] is None:
-            frame["at"] = idx
-        frame["idx"] = idx + 1
-    t0 = time.perf_counter()
-    with replaced(device_mod, "reproducible", contextlib.nullcontext), \
-            replaced(ba_ops, "_scatter_rows", captured):
-        tracker_n, mapper_n, timer_n = run_mod.run(
-            cfg, str(root / "run_nondeterministic"), sync_timer=True,
-            on_frame=on_frame)
-    torch.cuda.synchronize()
-    wall_n = time.perf_counter() - t0
-    del mapper_n
-    rows = {"with": (wall, timer), "without": (wall_n, timer_n)}
-    line = "; ".join(
-        f"{k}: {KITTI_FRAMES / w:.3f} frames/s, track "
-        f"{stage_ms(t, 'track'):.1f} ms per frame, map "
-        f"{stage_ms(t, 'map'):.1f} ms per keyframe (n={t.counts['map']})"
-        for k, (w, t) in rows.items())
-    cost = {s: 100 * (stage_ms(timer, s) / stage_ms(timer_n, s) - 1)
-            for s in ("track", "map")}
-    print(f"phase 15a the cost of utils.device.reproducible [{smi}] "
-          f"(15a with it, then the same run with a null context): {line}; "
-          f"map ms {cost['map']:+.1f} %, track ms {cost['track']:+.1f} %",
-          flush=True)
-    agreement("phase 15a without the context", tracker_n, tracker,
-              "15a's run")
-    check(frame["at"] is not None, f"phase 15a: no frame from {SUMS_FRAME} "
-          f"on ran a BA")
-    time_ba_sums(calls, frame["at"])
-
-
 def kitti_folder_phase(args, tk):
     """Phase 15a-d, this slice's main path: a written kitti_sync folder
     through runners.run, run_tracking, run_multiprocess and the mobile
@@ -3455,7 +3328,6 @@ def kitti_folder_phase(args, tk):
     errs = kernels_on("phase 15a", [(label, mapper.state, c2w, intr)],
                       dict(mapper.bin_kwargs), args.seed + 80)
     del mapper
-    determinism_cost(cfg, root, smi, timer, wall_a, tracker_a)
 
     # ---- 15b: run_tracking on the same folder
     t0 = time.perf_counter()
@@ -4362,6 +4234,163 @@ def sp_phase(args, tk):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the evaluation entry points
+# ---------------------------------------------------------------------------
+
+def eval_runs():
+    """(entry point, arguments, the keys its JAX script prints) of phase
+    18, at reduced depth, with the weights named absolutely."""
+    sp = ["--weights", str(WEIGHTS_DIR / "superpoint_selftrained.npz")]
+    droid = str(WEIGHTS_DIR / "droid_selftrained.npz")
+    return (
+        ("eval_superpoint", ["--pairs", "3"] + sp,
+         ("trained", "random", "pairs", "trained_beats_random")),
+        ("eval_droid", ["--frames", "16", "--weights", droid],
+         ("random", "trained", "trained_gated", "frames",
+          "trained_beats_random", "gating_selective")),
+        ("eval_track_long", ["--frames", "24", "--grid", "2x1",
+                             "--weights", droid],
+         ("2x1", "frames", "revs")),
+        ("eval_loop_e2e", ["--frames", "48", "--skip-baseline",
+                           "--droid-weights", droid] + sp,
+         ("frames", "keyframes", "detect_attempts", "loops_closed",
+          "closed_at", "ate_rmse_m", "ate_no_loop_m", "closure_deltas",
+          "stage_histogram", "loop_traces", "traces")),
+        ("eval_long_run", ["--frames", "48", "--skip-baseline",
+                           "--droid-weights", droid] + sp,
+         ("frames", "revs", "full")))
+
+
+@contextlib.contextmanager
+def recorded_builds():
+    """runners.run.build with each build's parts kept, and each mapper's
+    last mapped window (its newest keyframe's c2w and intrinsics)."""
+    from vings_mono_tpu_torch.runners import run as run_mod
+    from vings_mono_tpu_torch.utils.vis import host_array
+    builds = []
+    build = run_mod.build
+
+    def rec(cfg, device=None):
+        parts = build(cfg, device=device)
+        mapper, last = parts[2], {}
+        run = mapper.run
+
+        def mapped(viz_out):
+            last.update(c2w=host_array(viz_out["poses"][-1]),
+                        intr=dict(viz_out["intrinsic"]))
+            return run(viz_out)
+        mapper.run = mapped
+        builds.append((cfg, parts, last))
+        return parts
+    with replaced(run_mod, "build", rec):
+        yield builds
+
+
+def eval_phase(args, tk):
+    """Phase 18: the five evaluation entry points at reduced depth on the
+    card; both kernels against their plain twins on the final maps of
+    eval_loop_e2e and eval_long_run. Returns the launch counts of those
+    two runs and the kernels' largest errors."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = OUT / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_start = time.perf_counter()
+    launches, errs = {}, [0.0] * 4
+    for name, argv, keys in eval_runs():
+        mod = importlib.import_module(f"vings_mono_tpu_torch.runners.{name}")
+        out_path = root / f"{name}.json"
+        tk.rasterize_forward.launches = 0
+        tk.rasterize_backward.launches = 0
+        t0 = time.perf_counter()
+        with recorded_builds() as builds, \
+                open(root / f"{name}.log", "w") as log, \
+                contextlib.redirect_stdout(log):
+            out = mod.main(argv + ["--out", str(out_path), "--device",
+                                   DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {"rasterize_forward": tk.rasterize_forward.launches,
+             "rasterize_backward": tk.rasterize_backward.launches}
+        check(json.loads(out_path.read_text()) == json.loads(
+            json.dumps(out)), f"phase 18 {name}: --out differs")
+        missing = [k for k in keys if k not in out]
+        check(not missing, f"phase 18 {name}: keys {missing} missing")
+        nums = eval_numbers(name, out)
+        check(all(a is not None and np.isfinite(a) for a in nums),
+              f"phase 18 {name}: not finite: {nums}")
+        print(f"phase 18 {name} {' '.join(argv[:4])}: {wall:.1f} s; "
+              f"{eval_summary(name, out)}; launches {n}", flush=True)
+        if name not in ("eval_loop_e2e", "eval_long_run"):
+            continue
+        check(len(builds) == 1, f"phase 18 {name}: {len(builds)} builds")
+        cfg, parts, last = builds[0]
+        _, tracker, mapper, _, looper = parts[:5]
+        for what, dev in (("tracker", tracker.device),
+                          ("mapper", mapper.device),
+                          ("detector", looper.detector.device)):
+            check(torch.device(dev).type == "cuda",
+                  f"phase 18 {name}: the {what} sits on {dev}")
+        iters = int(cfg["training_args"]["iters"])
+        for kname, cnt in n.items():
+            check(cnt >= mapper.time_idx * iters, f"phase 18 {name}: "
+                  f"{kname} launched {cnt} times for {mapper.time_idx} "
+                  f"keyframes x {iters} iterations")
+        launches[name] = n
+        e = kernels_on(f"phase 18 {name}", [(
+            "the final map under the last mapped keyframe's camera",
+            mapper.state, last["c2w"], last["intr"])],
+            dict(mapper.bin_kwargs), args.seed + 70)
+        errs = [max(x, y) for x, y in zip(errs, e)]
+        del builds, parts, tracker, mapper, looper
+    print(f"phase 18 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches, errs
+
+
+def eval_numbers(name, out):
+    """The numbers of an evaluation that must be finite: its ATEs (and
+    PSNR), or SuperPoint's match counts."""
+    if name == "eval_superpoint":
+        return [out["trained"]["mean_matches"],
+                out["random"]["mean_matches"]]
+    if name == "eval_droid":
+        return [out[k]["ate_rmse_m"] for k in ("random", "trained",
+                                                "trained_gated")]
+    if name == "eval_track_long":
+        return [out["2x1"]["ate_rmse_m"]]
+    if name == "eval_loop_e2e":
+        return [out["ate_rmse_m"]]
+    return [out["full"][k] for k in ("ate_online_m",
+                                     "ate_after_global_ba_m", "psnr")]
+
+
+def eval_summary(name, out):
+    if name == "eval_superpoint":
+        return "; ".join(f"{k}: {out[k]['mean_matches']:.1f} matches, PnP "
+                         f"{out[k]['pnp_success']}/{out['pairs']}"
+                         for k in ("trained", "random"))
+    if name == "eval_droid":
+        return "; ".join(f"{k}: ATE {out[k]['ate_rmse_m']:.4f}, "
+                         f"{out[k]['n_keyframes']} keyframes"
+                         for k in ("random", "trained", "trained_gated"))
+    if name == "eval_track_long":
+        return f"2x1: ATE {out['2x1']['ate_rmse_m']:.4f}"
+    if name == "eval_loop_e2e":
+        return (f"{out['keyframes']} keyframes, {out['detect_attempts']} "
+                f"detect attempts, {out['loops_closed']} loops closed, ATE "
+                f"{out['ate_rmse_m']:.4f}, stages {out['stage_histogram']}")
+    f = out["full"]
+    return (f"{f['keyframes']} keyframes, {f['loops_closed']} loops closed, "
+            f"ATE {f['ate_online_m']:.4f} -> {f['ate_after_global_ba_m']:.4f} "
+            f"after global BA, PSNR {f['psnr']:.3f} dB, peak "
+            f"{f['peak_gaussians']} Gaussians, pages out/in "
+            f"{f['pages_out']}/{f['pages_in']}")
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -4587,6 +4616,8 @@ def main(argv=None):
                                     records[-1]["psnr"], smoke_stats)
     # ---- 17. the mesh's sp row split, and mapper.impl: naive
     sp_launches, sp_errs = sp_phase(args, tk)
+    # ---- 18. the evaluation entry points
+    eval_launches, eval_errs = eval_phase(args, tk)
     kernels = []
     for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
             err_800 in (
@@ -4606,6 +4637,8 @@ def main(argv=None):
             "launches_metric_session": metric_launches[name],
             "launches_dp": dp_launches[name],
             "launches_sp": sp_launches[name],
+            "launches_eval_loop_e2e": eval_launches["eval_loop_e2e"][name],
+            "launches_eval_long_run": eval_launches["eval_long_run"][name],
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -4618,13 +4651,14 @@ def main(argv=None):
             "max_abs_err_metric_session": err_metric,
             "max_abs_err_dp": dp_errs[0 if key == "fwd" else 1],
             "max_abs_err_sp": sp_errs[0 if key == "fwd" else 1],
+            "max_abs_err_eval": eval_errs[0 if key == "fwd" else 1],
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -193,10 +193,14 @@ def test_port_imports_no_jax():
                 "middleware.py", "utils/trajectory.py",
                 "utils/profiling.py", "utils/device.py",
                 "datasets/base.py", "datasets/synthetic.py",
-                "datasets/synthetic3d.py", "runners/run.py"):
+                "datasets/synthetic3d.py", "runners/run.py",
+                "runners/eval_common.py", "runners/eval_superpoint.py",
+                "runners/eval_droid.py", "runners/eval_track_long.py",
+                "runners/eval_loop_e2e.py", "runners/eval_long_run.py"):
         assert mod in names, mod
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "vings_mono_tpu"), \
+            assert top not in ("jax", "jaxlib", "flax", "vings_mono_tpu",
+                               "scripts"), \
                 f"{f.relative_to(ROOT)} imports {mod}"

@@ -74,6 +74,10 @@ class GaussianMapper:
                                         self._p_cap_max // 4)),
                               int(m["chunk"]))
         self._shrink_votes = self._shrink_votes_c = 0
+        # the largest padded demand each cache has seen, and whether
+        # freeze_buckets has pinned both
+        self._max_npairs = self._max_npairs_c = 0
+        self._cap_frozen = False
         self.bin_kwargs = {"p_cap": self._p_cap_max,
                            "chunk": int(m["chunk"]),
                            "side": int(m["side"]),
@@ -206,6 +210,26 @@ class GaussianMapper:
                                          sfx="_c")
             self._last_psnr_host = float(psnr)
 
+    def freeze_buckets(self):
+        """Pin both pair-capacity buckets, so that no bucket switch (and
+        no cache drop) lands inside a measured section. Each cache freezes
+        at the smallest ladder bucket covering the largest padded demand
+        it has seen (the hysteresis may sit a bucket too high, e.g. after
+        an early overflow's jump to max). Run a keyframe or two after
+        freezing, outside the measured section; later overflow keyframes
+        drop their farthest pairs."""
+        self._drain_stats()
+        for sfx in ("", "_c"):
+            seen = getattr(self, "_max_npairs" + sfx)
+            kw = getattr(self, "bin_kwargs" + sfx)
+            if seen:
+                fits = [b for b in self._bucket_ladder() if b >= seen]
+                want = fits[0] if fits else self._p_cap_max
+                if want != kw["p_cap"]:
+                    setattr(self, "bin_kwargs" + sfx, dict(kw, p_cap=want))
+                    setattr(self, "_binned" + sfx, None)
+        self._cap_frozen = True
+
     def _bucket_ladder(self):
         """Allowed pair-capacity buckets: {min*2^k} plus 1.5x intermediate
         steps (when chunk-divisible), capped at pair_capacity."""
@@ -228,7 +252,12 @@ class GaussianMapper:
         GROW one step only when pairs threaten the cap (overflow: straight
         to max), SHRINK after 3 votes to the smallest bucket holding
         1.15*n — a switch drops the binning cache. sfx selects the cache:
-        "" full resolution, "_c" the coarse phase's."""
+        "" full resolution, "_c" the coarse phase's. After freeze_buckets
+        it does nothing."""
+        if self._cap_frozen:
+            return
+        setattr(self, "_max_npairs" + sfx,
+                max(n, getattr(self, "_max_npairs" + sfx)))
         kw = getattr(self, "bin_kwargs" + sfx)
         votes = "_shrink_votes" + sfx
         cap = kw["p_cap"]
