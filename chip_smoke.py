@@ -164,7 +164,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      loop run's and the long run's tracker, mapper and detector sit on the
      card, the kernels launched on every training iteration, and both
      kernels are held against their plain twins on each run's final map
-     under its last mapped keyframe's camera.
+     under its last mapped keyframe's camera;
+ 19. the bench (`runners.bench.run`): both lanes at 240x432 with the
+     warm-up cut to 10 + 2 frames and the measured passes to 4 frames
+     (the gated lane keeps its 28 + 6 warm-up frames: with fewer its
+     gate had keyframed nothing); the eight keys of the JAX package's
+     bench.py, finite, both lanes mapped, on the card; both kernels
+     against their plain twins on each lane's final map under its last
+     keyframe's camera at the bench's chunk 256, and at chunk 512 on the
+     same map (the forward's shared memory above the 48 KB default),
+     with their times at both chunks.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`), and its runners
 and trainers enter `utils.device.reproducible` themselves.
@@ -4391,6 +4400,97 @@ def eval_summary(name, out):
             f"{f['pages_out']}/{f['pages_in']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the bench (runners/bench.py) at full width, reduced depth
+
+BENCH_SIZES = {"n_warm": 10, "n_meas": 4, "g_warm": 28}
+
+
+def bench_phase(args, tk):
+    """Phase 19: runners.bench.run's two lanes; both kernels on each
+    lane's final map at chunk 256 and at chunk 512. Returns the launch
+    counts of the run, the kernels' largest errors (forward, bf16
+    backward) and their ms at chunk 512 on the all-keyframe map."""
+    import gc
+    import torch
+    from vings_mono_tpu_torch.mapper.mapper import GaussianMapper
+    from vings_mono_tpu_torch.runners import bench
+    from vings_mono_tpu_torch.utils.vis import host_array
+    gc.collect()
+    torch.cuda.empty_cache()
+    last = {}
+    run = GaussianMapper.run
+
+    def recording(self, viz_out):
+        if viz_out is not None:
+            last[id(self)] = (host_array(viz_out["poses"][-1]),
+                              dict(viz_out["intrinsic"]))
+        return run(self, viz_out)
+    tk.rasterize_forward.launches = 0
+    tk.rasterize_backward.launches = 0
+    t0 = time.perf_counter()
+    with replaced(GaussianMapper, "run", recording):
+        out, lanes = bench.run(DEVICE, str(WEIGHTS), **BENCH_SIZES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {"rasterize_forward": tk.rasterize_forward.launches,
+         "rasterize_backward": tk.rasterize_backward.launches}
+    print(f"phase 19 bench {BENCH_SIZES}: {wall:.1f} s; {json.dumps(out)}; "
+          f"launches {n}", flush=True)
+    check(tuple(out) == bench.KEYS, f"phase 19: keys {tuple(out)}")
+    check(all(np.isfinite(out[k]) for k in bench.KEYS
+              if k not in ("metric", "unit")), "phase 19: not finite")
+    check(out["value"] > 0 and out["allkf_fps"] > 0
+          and out["gated_keyframe_frac"] > 0 and out["mfu"] > 0,
+          f"phase 19: a lane did not run: {out}")
+    for name, cnt in n.items():
+        check(cnt > 0, f"phase 19: {name} never launched")
+    blocks = []
+    for lane, (tracker, mapper) in lanes.items():
+        for what, dev in (("tracker", tracker.device),
+                          ("mapper", mapper.device)):
+            check(torch.device(dev).type == "cuda",
+                  f"phase 19 {lane}: the {what} sits on {dev}")
+        check(mapper.time_idx > 0 and id(mapper) in last,
+              f"phase 19 {lane}: nothing mapped")
+        if id(mapper) not in last:
+            continue
+        c2w, intr = last[id(mapper)]
+        blocks.append((f"the {lane} lane's final map", mapper.state, c2w,
+                       intr))
+    kw = dict(lanes["allkf"][1].bin_kwargs)
+    check(kw["chunk"] == 256, f"phase 19: chunk {kw['chunk']}")
+    errs = kernels_on("phase 19 chunk 256", blocks, kw, args.seed + 80)
+    kw512 = dict(kw, chunk=512)
+    errs = [max(a, b) for a, b in zip(errs, kernels_on(
+        "phase 19 chunk 512", blocks, kw512, args.seed + 81))]
+    attrs = tk.kernel_attributes(512)
+    _, state, c2w, intr = blocks[0]
+    w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
+                          device=DEVICE)
+    ms = {}
+    for chunk in (256, 512):
+        pd, binned, meta = pair_inputs(state, w2c, dict(kw, chunk=chunk),
+                                       DEVICE, intrinsic=intr)
+        tc = binned.tile_chunks
+        o = tk.rasterize_forward(pd, tc, meta, chunk)
+        g = torch.randn_like(o)
+        ms[chunk] = (
+            cuda_ms(lambda: tk.rasterize_forward(pd, tc, meta, chunk), 50),
+            cuda_ms(lambda: tk.rasterize_backward(
+                pd, tc, meta, chunk, o, g, out_dtype=torch.bfloat16), 50))
+    print(f"phase 19 kernels at chunk 512: shared memory forward "
+          f"{attrs['rasterize_forward']['smem_bytes']} B, backward "
+          f"{attrs['rasterize_backward_bf16']['smem_bytes']} B, blocks/SM "
+          f"{attrs['rasterize_forward']['blocks_per_sm']} / "
+          f"{attrs['rasterize_backward_bf16']['blocks_per_sm']}; on the "
+          f"all-keyframe map ({int(binned.n_pairs)} pairs, p_cap "
+          f"{kw['p_cap']}) forward {ms[256][0]:.4f} ms at chunk 256, "
+          f"{ms[512][0]:.4f} at 512; backward bf16 {ms[256][1]:.4f} / "
+          f"{ms[512][1]:.4f} ms; largest errors {errs}", flush=True)
+    return n, errs, ms[512]
+
+
 def nvidia_smi():
     try:
         out = subprocess.run(
@@ -4618,6 +4718,8 @@ def main(argv=None):
     sp_launches, sp_errs = sp_phase(args, tk)
     # ---- 18. the evaluation entry points
     eval_launches, eval_errs = eval_phase(args, tk)
+    # ---- 19. the bench
+    bench_launches, bench_errs, bench_ms512 = bench_phase(args, tk)
     kernels = []
     for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
             err_800 in (
@@ -4639,6 +4741,7 @@ def main(argv=None):
             "launches_sp": sp_launches[name],
             "launches_eval_loop_e2e": eval_launches["eval_loop_e2e"][name],
             "launches_eval_long_run": eval_launches["eval_long_run"][name],
+            "launches_bench": bench_launches[name],
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -4652,13 +4755,15 @@ def main(argv=None):
             "max_abs_err_dp": dp_errs[0 if key == "fwd" else 1],
             "max_abs_err_sp": sp_errs[0 if key == "fwd" else 1],
             "max_abs_err_eval": eval_errs[0 if key == "fwd" else 1],
+            "max_abs_err_bench": bench_errs[0 if key == "fwd" else 1],
+            "ms_chunk512_bench": bench_ms512[0 if key == "fwd" else 1],
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
             "max_abs_err_trained_240x800": err_800,
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -196,7 +196,17 @@ def test_port_imports_no_jax():
                 "datasets/synthetic3d.py", "runners/run.py",
                 "runners/eval_common.py", "runners/eval_superpoint.py",
                 "runners/eval_droid.py", "runners/eval_track_long.py",
-                "runners/eval_loop_e2e.py", "runners/eval_long_run.py"):
+                "runners/eval_loop_e2e.py", "runners/eval_long_run.py",
+                "runners/bench_common.py", "runners/bench.py",
+                "runners/profile_overlap.py", "runners/bench_profile.py",
+                "runners/mfu.py", "runners/profile_map_run.py",
+                "runners/profile_train.py", "runners/bench_mapper.py",
+                "runners/bench_tracker.py",
+                "runners/bench_tracker_micro.py",
+                "runners/bench_raster.py", "runners/tune_binning.py",
+                "runners/profile_host.py", "runners/bench_scatter.py",
+                "runners/profile_train_map.py",
+                "runners/report_parity.py", "runners/bench_all.py"):
         assert mod in names, mod
     for f in files:
         for mod in _imports(f):

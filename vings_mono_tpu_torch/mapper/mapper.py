@@ -406,6 +406,11 @@ class GaussianMapper:
 
     # ---- main entry (mirrors gaussian_base.run) ------------------------
     def run(self, viz_out):
+        """Map one packaged window. Its programs (add_frame, bin_stack,
+        train_loop, storage_control) run inside `torch.profiler` ranges
+        named as the JAX package's programs, so that a trace gives device
+        time per program; a range adds no device work and no
+        synchronization."""
         if viz_out is None:
             return
         intr = viz_out["intrinsic"]
@@ -418,7 +423,8 @@ class GaussianMapper:
             self.history = np.asarray(
                 viz_out["viz_out_idx_to_f_idx"]).tolist()
             for i in range(self._n_valid_host):
-                self._add_frame(batch, i, intr4, first=True)
+                with torch.profiler.record_function("add_frame"):
+                    self._add_frame(batch, i, intr4, first=True)
                 self._sky_add_frame(batch, i, intr4)
             self.initialized = True
         else:
@@ -427,10 +433,12 @@ class GaussianMapper:
                 return
             # if the window was cropped to kf_capacity, re-locate the index
             new_id = min(new_id, self._n_valid_host - 1)
-            self._add_frame(batch, new_id, intr4, first=False)
+            with torch.profiler.record_function("add_frame"):
+                self._add_frame(batch, new_id, intr4, first=False)
             self._sky_add_frame(batch, new_id, intr4)
 
-        binned = self._refresh_binned(batch, intr4)
+        with torch.profiler.record_function("bin_stack"):
+            binned = self._refresh_binned(batch, intr4)
 
         self.refined_poses = None
         if self.cfg.get("use_refine"):
@@ -471,18 +479,20 @@ class GaussianMapper:
             batch_c = half_batch(batch)
             intr4_c = half_intr4(intr4)
             hc, wc = self.H // 2, self.W // 2
-            binned_c = self._refresh_binned(batch_c, intr4_c, height=hc,
-                                            width=wc, sfx="_c")
-            self._train(
-                self.state, self.opt, batch_c, binned_c, intr4_c,
-                iters=iters_c, height=hc, width=wc,
-                kf_schedule=self._kf_schedule(iters_c, batch.n_valid),
-                weights=ta["loss_weights"], lrs=lrs,
-                render_kwargs=self.render_kwargs_c,
-                sky=self._sky_args(batch_c, intr4_c, hc, wc,
+            with torch.profiler.record_function("bin_stack"):
+                binned_c = self._refresh_binned(batch_c, intr4_c, height=hc,
+                                                width=wc, sfx="_c")
+            sky_c = self._sky_args(batch_c, intr4_c, hc, wc,
                                    self.bin_kwargs_c,
                                    None if sky_images is None
-                                   else pool2x2(sky_images)))
+                                   else pool2x2(sky_images))
+            with torch.profiler.record_function("train_loop"):
+                self._train(
+                    self.state, self.opt, batch_c, binned_c, intr4_c,
+                    iters=iters_c, height=hc, width=wc,
+                    kf_schedule=self._kf_schedule(iters_c, batch.n_valid),
+                    weights=ta["loss_weights"], lrs=lrs,
+                    render_kwargs=self.render_kwargs_c, sky=sky_c)
 
         targs = (self.state, self.opt, batch, binned, intr4)
         tkw = dict(height=self.H, width=self.W, weights=ta["loss_weights"],
@@ -491,18 +501,21 @@ class GaussianMapper:
                                       self.bin_kwargs, sky_images))
         # shape-only signature for MFU accounting (utils/mfu.py)
         self._mfu_sig = (shape_sig(targs), shape_sig(tkw), iters - iters_c)
-        _, _, metrics = self._train(
-            *targs, iters=iters - iters_c,
-            kf_schedule=self._kf_schedule(iters - iters_c, batch.n_valid),
-            **tkw)
+        with torch.profiler.record_function("train_loop"):
+            _, _, metrics = self._train(
+                *targs, iters=iters - iters_c,
+                kf_schedule=self._kf_schedule(iters - iters_c,
+                                              batch.n_valid), **tkw)
         self.metrics = metrics
 
         self.time_idx += 1
         if self.time_idx % int(ta["num_keyframe"]) == 0:
             stablemask_control(self.state)
         if self.time_idx % 4 == 0:
-            storage_control(self.state, batch, binned, intr4, height=self.H,
-                            width=self.W, render_kwargs=self.render_kwargs)
+            with torch.profiler.record_function("storage_control"):
+                storage_control(self.state, batch, binned, intr4,
+                                height=self.H, width=self.W,
+                                render_kwargs=self.render_kwargs)
         # deferred end-of-run stats: pulled at the next drain, so the host
         # does not wait for the device after every keyframe
         self._pending_stats.append((

@@ -336,6 +336,7 @@ def _depth_update(R, pid, Q, wrhs, dx):
     return Q * (wrhs - torch.einsum("madh,mad->mh", R, dx[pid]))
 
 
+@torch.profiler.record_function("ba_global")
 def ba_global(target, weight, eta, poses, disps, intrinsics, ii, jj,
               edge_valid, group_idx, group_valid, free_mask, iters=2,
               ep=0.1, lm=1e-4):
@@ -356,7 +357,9 @@ def ba_global(target, weight, eta, poses, disps, intrinsics, ii, jj,
     with `index_add_` over a flat (T*T, 6, 6) buffer.
 
     free_mask (T,) bool — poses to optimize (False = pinned, e.g. frame 0).
-    Returns (poses, disps) after `iters` Gauss-Newton steps."""
+    Returns (poses, disps) after `iters` Gauss-Newton steps. In a
+    `torch.profiler` trace the call is the range `ba_global`, as the JAX
+    program is named."""
     T = disps.shape[0]
     ii, jj, group_idx = ii.long(), jj.long(), group_idx.long()
 

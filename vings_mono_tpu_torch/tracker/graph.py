@@ -481,8 +481,10 @@ class CovisibleGraph:
                   mask_threshold=self.mask_threshold, bf16=self.bf16_gru)
         # shape-only signature for MFU accounting (utils/mfu.py)
         self._mfu_sig = (shape_sig(args), dict(kw, do_ba=True))
-        out = _fused_update(*args, **kw, compute_cov=compute_cov,
-                            do_ba=not inertial)
+        # named as the JAX program, for device time per program in a trace
+        with torch.profiler.record_function("_fused_update"):
+            out = _fused_update(*args, **kw, compute_cov=compute_cov,
+                                do_ba=not inertial)
         bufs = self.video.bufs
         if inertial:
             # GRU on the device, pose fusion on the host factor graph

@@ -7,8 +7,9 @@ host's only, and device work may run on into the next stage. The report says
 which of the two it is.
 
 `trace` records a `torch.profiler` trace (CPU and, where there is a card,
-CUDA activity) as a chrome trace; `device_events` sums its device events
-(kernels, memcpy, memset) by name. `count_flops` counts a call's FLOPs with
+CUDA activity, every thread) as a chrome trace; `load_trace` reads it
+back, `device_events` sums its device events (kernels, memcpy, memset)
+by name. `count_flops` counts a call's FLOPs with
 `torch.utils.flop_counter.FlopCounterMode`."""
 
 from __future__ import annotations
@@ -73,37 +74,56 @@ class StageTimer:
 def trace(dirname):
     """torch.profiler trace of the block, written to
     `dirname/trace.json` as a chrome trace (chrome://tracing, Perfetto).
-    CUDA activity is recorded where a card is present."""
+    CUDA activity is recorded where a card is present, and the ranges of
+    every thread (a threaded runner's mapper runs in a thread of its
+    own)."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(dirname, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(dirname, "trace.json"))
 
 
-def device_events(trace_dir):
-    """The first chrome trace under `trace_dir` (`*.json` or `*.json.gz`)
-    -> {event name: (total ms, count)} over its device events only:
-    kernels, memcpy and memset. {} when there is no trace."""
+def load_trace(trace_dir):
+    """The events of the first chrome trace under `trace_dir` (`*.json`
+    or `*.json.gz`); [] when there is none."""
     files = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"),
                              recursive=True) +
                    glob.glob(os.path.join(trace_dir, "**", "*.json.gz"),
                              recursive=True))
     if not files:
-        return {}
+        return []
     opener = gzip.open if files[0].endswith(".gz") else open
     with opener(files[0], "rt") as f:
-        events = json.load(f)["traceEvents"]
+        return json.load(f)["traceEvents"]
+
+
+def is_device(event):
+    """A device event of a chrome trace: a kernel, memcpy or memset."""
+    return event.get("ph") == "X" and event.get("cat") in DEVICE_CATEGORIES
+
+
+def device_ms_by_name(events):
+    """{event name: (total ms, count)} over the device events."""
     agg = {}
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
-            continue
-        ms, n = agg.get(e["name"], (0.0, 0))
-        agg[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+        if is_device(e):
+            ms, n = agg.get(e["name"], (0.0, 0))
+            agg[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
     return agg
+
+
+def device_events(trace_dir):
+    """The first chrome trace under `trace_dir` -> {event name: (total
+    ms, count)} over its device events only: kernels, memcpy and memset.
+    {} when there is no trace."""
+    return device_ms_by_name(load_trace(trace_dir))
 
 
 def count_flops(fn, *args, **kwargs):
