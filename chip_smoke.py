@@ -190,7 +190,6 @@ import importlib
 import json
 import pathlib
 import shutil
-import subprocess
 import sys
 import time
 
@@ -3761,9 +3760,10 @@ def grads_agree(tag, a, b, rtol, atol_of_max=None, atol=0.0):
 
 def dp_grads_phase(args, tk, group, label):
     """16a: sharded_tile_grads through `group` against dp = 1 on the card
-    (the same kernels and sums, split over two ranks) and against the CPU
+    (the same kernels and sums, split over the ranks) and against the CPU
     plain path on one keyframe per rank; both kernels against their plain
-    twins on one rank's inputs."""
+    twins on one rank's inputs. Returns the kernels' largest errors and
+    the numbers printed."""
     import torch
     from vings_mono_tpu_torch.parallel import mesh
     st, opt, batch, intr4 = dp_scene(DEVICE)
@@ -3780,20 +3780,21 @@ def dp_grads_phase(args, tk, group, label):
     torch.cuda.synchronize()
     dp1_ms = (time.perf_counter() - t0) * 1e3
     l1, l2 = float(l1), float(l2)
+    dp = group.dp
     check(abs(l2 - l1) <= DP_LOSS_REL * abs(l1),
-          f"16a {label}: loss {l2} at dp 2, {l1} at dp 1")
+          f"16a {label}: loss {l2} at dp {dp}, {l1} at dp 1")
     check(torch.equal(v2, v1), f"16a {label}: visibility differs")
-    w1 = grads_agree(f"16a {label} dp 2 vs dp 1", g2, g1, DP_GRAD_RTOL,
+    w1 = grads_agree(f"16a {label} dp {dp} vs dp 1", g2, g1, DP_GRAD_RTOL,
                      atol=DP_GRAD_ATOL)
     print(f"phase 16a sharded_tile_grads [{label}] on tests/test_parallel."
           f"py's scene at {H}x{W} ({DP_SURFELS} surfels, K = {DP_K}, p_cap "
           f"{DP_P_CAP}): loss {l2:.7f} (dp 1 {l1:.7f}), {int(v2.sum())} "
-          f"visible; gradients dp 2 vs dp 1 within {w1:.3e} of rtol "
-          f"{DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}; {dp2_ms:.1f} ms at dp 2 "
-          f"({group.backend}, rank 0 on {group.device}), {dp1_ms:.1f} ms at "
-          f"dp 1", flush=True)
+          f"visible; gradients dp {dp} vs dp 1 within {w1:.3e} of rtol "
+          f"{DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}; {dp2_ms:.1f} ms at dp "
+          f"{dp} ({group.backend}, rank 0 on {group.device}), {dp1_ms:.1f} "
+          f"ms at dp 1", flush=True)
     # the CPU plain path on one keyframe per rank
-    sub = [x[:2] for x in batch]
+    sub = [x[:dp] for x in batch]
     gs, vs, ls = mesh.sharded_tile_grads(group, st, opt, *sub, intr4, **kw)
     cpu_st = dataclasses.replace(st, **{
         f: getattr(st, f).cpu() for f in ("xyz", "rgb", "log_scale", "quat",
@@ -3809,7 +3810,7 @@ def dp_grads_phase(args, tk, group, label):
           f"from the CPU's")
     wc = grads_agree(f"16a {label} card vs CPU", gs, gc, 0.0,
                      atol_of_max=DP_CPU_GRAD)
-    print(f"phase 16a [{label}] card vs CPU plain path (K = 2, one "
+    print(f"phase 16a [{label}] card vs CPU plain path (K = {dp}, one "
           f"keyframe per rank, {cpu_s:.1f} s on the CPU): loss "
           f"{float(ls):.7f} vs {float(lc):.7f}, visibility equal, gradients "
           f"within {wc:.3e} of {DP_CPU_GRAD} x each tensor's largest",
@@ -3826,13 +3827,16 @@ def dp_grads_phase(args, tk, group, label):
     fwd, bwd, *_ = check_kernels(f"16a rank 1's keyframe ({label})", pd,
                                  binned.tile_chunks, meta, DP_CHUNK,
                                  args.seed + 60, int(binned.n_pairs))
-    return fwd, bwd["bf16"]
+    return {"errs": (fwd, bwd["bf16"]), "loss": l2, "loss_dp1": l1,
+            "grad_worst": w1, "ms": dp2_ms, "ms_dp1": dp1_ms,
+            "cpu_worst": wc}
 
 
 def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
                     label):
     """16b: phase 4's replay through GaussianMapper with `parallel`, every
-    call digest-checked across the ranks (`verify`)."""
+    call digest-checked across the ranks (`verify`). Returns the numbers
+    printed."""
     import torch
     from vings_mono_tpu_torch.runners import run_mapping
     tk.rasterize_forward.launches = 0
@@ -3851,11 +3855,12 @@ def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
     kf_ms = [r["ms"] for r in records]
     iters = len(records) * args.iters
     comm = g.comm_s * 1e3 / iters
+    comm_mb = g.comm_bytes / 1e6 / iters
     print(f"phase 16b replay [{label}, {nvidia_smi()}]: {len(records)} "
           f"keyframes x {args.iters} iters in {run_s:.1f} s, keyframe mean "
           f"{np.mean(kf_ms):.1f} ms (phase 4, dp 1: {phase4_ms:.1f} ms); "
-          f"collectives {comm:.2f} ms per iteration on rank 0's host clock "
-          f"({g.comm_calls} collectives, {g.calls} dp calls, each "
+          f"collectives {comm:.2f} ms and {comm_mb:.3f} MB per iteration "
+          f"on rank 0 ({g.comm_calls} collectives, {g.calls} dp calls, each "
           f"digest-checked); train psnr last {records[-1]['psnr']:.3f} "
           f"(phase 4: {phase4_psnr:.3f}); peak memory per rank "
           f"{ {r: round(b / 1e9, 3) for r, b in peak.items()} } GB; "
@@ -3869,12 +3874,16 @@ def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
             check(n >= iters, f"16b {label}: rank {r} launched {name} "
                   f"{n} times for {iters} iterations")
     check_no_children(f"phase 16b [{label}]", g)
-    return ranks
+    return {"kf_ms": float(np.mean(kf_ms)), "psnr": records[-1]["psnr"],
+            "comm_ms": comm, "comm_mb": comm_mb,
+            "calls": g.comm_calls / iters, "peak": peak, "ranks": ranks}
 
 
 def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
-    """16c: smoke.yaml through runners.run.run with `parallel`."""
+    """16c: smoke.yaml through runners.run.run with `parallel`. Returns
+    the launches summed over the ranks and the numbers printed."""
     import torch
+    from vings_mono_tpu_torch.parallel.mesh import digest
     from vings_mono_tpu_torch.runners import run as run_mod
     from vings_mono_tpu_torch.utils.config import load_config
     save_dir = OUT / f"smoke_dp_{label}"
@@ -3886,6 +3895,7 @@ def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
         "parallel": parallel})
     tk.rasterize_forward.launches = 0
     tk.rasterize_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tracker, mapper, timer = run_mod.run(cfg, str(save_dir),
                                          sync_timer=True)
@@ -3895,6 +3905,7 @@ def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
     ranks = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
                                                   tk.rasterize_backward)}}
     ranks.update(g.launches)
+    peak = {0: torch.cuda.max_memory_allocated(), **g.peak_bytes}
     print(timer.report().replace("\n", "\nphase 16c ").replace(
         "stage times", "phase 16c stage times"), flush=True)
     stats = run_quality(f"phase 16c [{label}]", cfg, save_dir, tracker,
@@ -3907,6 +3918,8 @@ def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
           f"{smoke_stats['psnr']}); the mapper trained on "
           f"{mapper.time_idx} keyframes in {g.calls} dp calls; "
           f"collectives {g.comm_s * 1e3:.1f} ms on rank 0's host clock; "
+          f"peak memory per rank "
+          f"{ {r: round(b / 1e9, 3) for r, b in peak.items()} } GB; "
           f"launches per rank {ranks}", flush=True)
     shared = sorted(set(stats["poses"]) & set(smoke_stats["poses"]))
     dist, ang = pose_gap(stats["poses"], smoke_stats["poses"], shared)
@@ -3924,8 +3937,11 @@ def dp_smoke_phase(args, tk, smoke_stats, parallel, label):
             check(n >= mapper.time_idx * int(cfg["training_args"]["iters"]),
                   f"16c {label}: rank {r} launched {name} {n} times")
     check_no_children(f"phase 16c [{label}]", g)
-    return {name: sum(c[name] for c in ranks.values())
-            for name in ranks[0]}
+    return {"launches": {name: sum(c[name] for c in ranks.values())
+                         for name in ranks[0]},
+            "ranks": ranks, "peak": peak, "stats": stats,
+            "gap": (len(shared), dist, ang),
+            "map": digest([getattr(mapper.state, f) for f in MAP_FIELDS])}
 
 
 def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
@@ -3947,7 +3963,8 @@ def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
     else:
         print(f"phase 16: NCCL did not run: this machine has "
               f"{torch.cuda.device_count()} CUDA device (NCCL needs one "
-              f"card per rank); 16a and 16b ran over Gloo on cuda:0 only",
+              f"card per rank); 16a and 16b ran over Gloo on cuda:0 only. "
+              f"profile_multicard.py runs them over NCCL on four cards",
               flush=True)
     errs = []
     for label, parallel in runs:
@@ -3955,13 +3972,14 @@ def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
             "devices"), backend=parallel.get("backend"))
         group.verify = True
         try:
-            errs.append(dp_grads_phase(args, tk, group, label))
+            errs.append(dp_grads_phase(args, tk, group, label)["errs"])
         finally:
             group.close()
         check_no_children(f"phase 16a [{label}]", group)
         dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
                         label)
-    launches = dp_smoke_phase(args, tk, smoke_stats, DP_GLOO, "gloo")
+    launches = dp_smoke_phase(args, tk, smoke_stats, DP_GLOO,
+                              "gloo")["launches"]
     print(f"phase 16 in {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches, [max(e[0] for e in errs), max(e[1] for e in errs)]
 
@@ -4000,34 +4018,46 @@ def zero_launches(tk, group):
     group.launches = {}
 
 
-def sp_full_phase(args, tk):
-    """17a: the tile step at sp 2 (two ranks on cuda:0 over Gloo) on phase
-    16a's scene at 240x800, against the whole-image step; both kernels
-    against their plain twins on rank 1's band. Returns the launches of
-    the sp 2 steps summed over the ranks and the kernels' largest errors
-    on the band's inputs."""
+def sp_full_phase(args, tk, mesh_kw=None, shape=None):
+    """17a: the tile step over a mesh on phase 16a's scene at 240x800,
+    against the whole-image step; both kernels against their plain twins
+    on rank 1's band. The mesh is `make_mesh(**mesh_kw)`, which must have
+    `shape`: by default two ranks on cuda:0 over Gloo, (dp, sp) = (1, 2).
+    Returns the launches of the mesh's steps summed over the ranks, the
+    kernels' largest errors on the band's inputs and the numbers
+    printed."""
     import torch
     from vings_mono_tpu_torch.parallel import mesh
-    group = mesh.make_mesh(devices=[rank_device()] * 2, dp=1,
-                           backend="gloo")
+    mesh_kw = mesh_kw or {"devices": [rank_device()] * 2, "dp": 1,
+                          "backend": "gloo"}
+    shape = shape or {"dp": 1, "sp": 2}
+    group = mesh.make_mesh(**mesh_kw)
     group.verify = True
     try:
-        check(group.shape == {"dp": 1, "sp": 2}, f"17a: mesh {group.shape}")
+        check(group.shape == shape, f"17a: mesh {group.shape}")
+        where = (f"(dp, sp) = ({group.dp}, {group.sp}), {group.world} ranks "
+                 f"on {mesh_kw.get('devices', 'every card')} over "
+                 f"{group.backend}")
         st, opt, batch, intr4 = dp_scene(DEVICE)
         kw = dict(height=H, width=W, p_cap=DP_P_CAP, chunk=DP_CHUNK)
         g2, v2, l2 = mesh.sharded_tile_grads(group, st, opt, *batch, intr4,
                                              **kw)
+        # the pair reduction the mesh's step uses (see sharded_grads)
+        reduce = "f32" if group.sp > 1 else "bf16"
         g1, v1, l1 = mesh.local_grads(st.params(), st.alive, *batch, intr4,
-                                      H, W, DP_P_CAP, DP_CHUNK, "tile", "f32")
+                                      H, W, DP_P_CAP, DP_CHUNK, "tile",
+                                      reduce)
         l1, l2 = float(l1), float(l2)
         check(abs(l2 - l1) <= SP_LOSS_REL * abs(l1),
-              f"17a: loss {l2} at sp 2, {l1} whole")
+              f"17a: loss {l2} at {group.shape}, {l1} whole")
         check(torch.equal(v2, v1), "17a: visibility differs")
-        wg = grads_agree("17a sp 2 vs whole", g2, g1, DP_GRAD_RTOL,
-                         atol=DP_GRAD_ATOL)
-        # the step, the main path of this phase: sp 2, then the whole image
+        wg = grads_agree(f"17a {group.shape} vs whole", g2, g1,
+                         DP_GRAD_RTOL, atol=DP_GRAD_ATOL)
+        # the step, the main path of this phase: the mesh, then the whole
+        # image
         st_b, opt_b, _, _ = dp_scene(DEVICE)
-        comm0 = group.comm_s
+        comm0, bytes0 = group.comm_s, group.comm_bytes
+        calls0 = group.comm_calls
         torch.cuda.reset_peak_memory_stats()
         zero_launches(tk, group)
         ms2 = []
@@ -4043,6 +4073,8 @@ def sp_full_phase(args, tk):
         ranks = launches_of(tk, group)
         peak = {0: torch.cuda.max_memory_allocated(), **group.peak_bytes}
         comm = (group.comm_s - comm0) * 1e3 / SP_STEPS
+        comm_mb = (group.comm_bytes - bytes0) / 1e6 / SP_STEPS
+        calls = (group.comm_calls - calls0) / SP_STEPS
         ms1 = []
         for i in range(SP_STEPS):
             torch.cuda.synchronize()
@@ -4054,27 +4086,30 @@ def sp_full_phase(args, tk):
             if i == 0:
                 ls1 = float(loss)
         check(abs(ls2 - ls1) <= SP_LOSS_REL * abs(ls1),
-              f"17a: first step's loss {ls2} at sp 2, {ls1} with no group")
+              f"17a: first step's loss {ls2} at {group.shape}, {ls1} with "
+              f"no group")
         check(bool(torch.isfinite(st.xyz).all()), "17a: xyz not finite")
         print(f"phase 17a sharded_train_step(impl=tile) [{nvidia_smi()}] at "
               f"{H}x{W} ({DP_SURFELS} surfels, K = {DP_K}, p_cap "
-              f"{DP_P_CAP}), (dp, sp) = (1, 2), two ranks on cuda:0 over "
-              f"Gloo, bands {mesh.row_bands(H, 2)}: loss {l2:.7f} (whole "
-              f"{l1:.7f}), {int(v2.sum())} visible, gradients sp 2 vs whole "
-              f"(f32 pair reduction) within {wg:.3e} of rtol "
-              f"{DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}; first step loss "
-              f"{ls2:.7f} (no group {ls1:.7f}); ms per step sp 2 "
-              f"{[round(x, 1) for x in ms2]}, sp 1 (no group, bf16 pair "
-              f"reduction) {[round(x, 1) for x in ms1]}; collectives "
-              f"{comm:.1f} ms per step on rank 0's host clock; peak memory "
-              f"per rank { {r: round(b / 1e9, 3) for r, b in peak.items()} }"
-              f" GB; launches per rank {ranks}", flush=True)
+              f"{DP_P_CAP}), {where}, bands {mesh.row_bands(H, group.sp)}: "
+              f"loss {l2:.7f} (whole {l1:.7f}), {int(v2.sum())} visible, "
+              f"gradients on the mesh vs whole ({reduce} pair reduction) "
+              f"within {wg:.3e} of rtol {DP_GRAD_RTOL} / atol "
+              f"{DP_GRAD_ATOL}; first step loss {ls2:.7f} (no group "
+              f"{ls1:.7f}); ms per step on the mesh "
+              f"{[round(x, 1) for x in ms2]}, whole image (no group, bf16 "
+              f"pair reduction) {[round(x, 1) for x in ms1]}; collectives "
+              f"{comm:.1f} ms and {comm_mb:.3f} MB per step on rank 0; peak "
+              f"memory per rank "
+              f"{ {r: round(b / 1e9, 3) for r, b in peak.items()} } GB; "
+              f"launches per rank {ranks}", flush=True)
         for r, counts in ranks.items():
             for name, n in counts.items():
-                check(n >= SP_STEPS * DP_K, f"17a: rank {r} launched {name} "
-                      f"{n} times in {SP_STEPS} steps")
-        # both kernels on rank 1's band: rows 128..239 and the halo from 112
-        r0, r1, h0, h1 = mesh.row_bands(H, 2)[1]
+                check(n >= SP_STEPS * DP_K // group.dp, f"17a: rank {r} "
+                      f"launched {name} {n} times in {SP_STEPS} steps")
+        # both kernels on rank 1's band (at sp 2 rows 128..239 and the halo
+        # from 112; at sp 1 the whole image)
+        r0, r1, h0, h1 = mesh.row_bands(H, group.sp)[1 % group.sp]
         band = {"fu": intr4[1], "fv": intr4[0], "cu": intr4[3] - h0,
                 "cv": intr4[2], "H": h1 - h0, "W": W}
         pd, binned, meta = pair_inputs(st, batch[3][0], {
@@ -4089,13 +4124,18 @@ def sp_full_phase(args, tk):
         group.close()
     check_no_children("phase 17a", group)
     return ({name: sum(c[name] for c in ranks.values()) for name in ranks[0]},
-            (fwd, bwd["f32"]))
+            (fwd, bwd["f32"]),
+            {"shape": group.shape, "loss": l2, "loss_whole": l1,
+             "grad_worst": wg, "ms": ms2,
+             "ms_whole": ms1, "comm_ms": comm, "comm_mb": comm_mb,
+             "calls": calls, "peak": peak, "ranks": ranks})
 
 
-def sp_grid_phase(tk):
-    """17b: (dp, sp) = (2, 2), four ranks on cuda:0 over Gloo, on
-    __graft_entry__.py's dryrun scene (32x32, 256 surfels, K = 4), naive
-    and tile, against the whole-image step in this process."""
+def sp_grid_phase(tk, mesh_kw=None):
+    """17b: (dp, sp) = (2, 2), `make_mesh(**mesh_kw)` (by default four
+    ranks on cuda:0 over Gloo), on __graft_entry__.py's dryrun scene
+    (32x32, 256 surfels, K = 4), naive and tile, against the whole-image
+    step in this process."""
     import torch
     from vings_mono_tpu_torch.mapper.state import adam_init, empty_state
     from vings_mono_tpu_torch.parallel import mesh
@@ -4118,8 +4158,9 @@ def sp_grid_phase(tk):
              torch.full((k, 1, h, w), 0.01, **f32),
              torch.eye(4, **f32).repeat(k, 1, 1)]
     intr4 = (30.0, 30.0, w / 2, h / 2)
-    group = mesh.make_mesh(devices=[rank_device()] * 4, dp=2,
-                           backend="gloo")
+    mesh_kw = mesh_kw or {"devices": [rank_device()] * 4, "dp": 2,
+                          "backend": "gloo"}
+    group = mesh.make_mesh(**mesh_kw)
     group.verify = True
     try:
         check(group.shape == {"dp": 2, "sp": 2}, f"17b: mesh {group.shape}")
@@ -4145,8 +4186,10 @@ def sp_grid_phase(tk):
                 s2, opt, *batch, intr4, height=h, width=w, impl=impl,
                 group=group)
             ranks = launches_of(tk, group)
-            print(f"phase 17b (dp, sp) = (2, 2) on cuda:0 x 4 over Gloo, "
-                  f"impl {impl}, {h}x{w}, K = {k}: loss {l2:.7f} (whole "
+            print(f"phase 17b (dp, sp) = (2, 2) on "
+                  f"{mesh_kw.get('devices', 'every card')} over "
+                  f"{group.backend}, impl {impl}, {h}x{w}, K = {k}: loss "
+                  f"{l2:.7f} (whole "
                   f"{l1:.7f}), step loss {float(loss):.7f}, gradients within "
                   f"{wg:.3e} of rtol {DP_GRAD_RTOL} / atol {DP_GRAD_ATOL}, "
                   f"launches per rank {ranks}", flush=True)
@@ -4236,7 +4279,7 @@ def sp_phase(args, tk):
     t_start = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    launches, errs = sp_full_phase(args, tk)
+    launches, errs, _ = sp_full_phase(args, tk)
     sp_grid_phase(tk)
     naive_mapper_phase(tk)
     print(f"phase 17 in {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4492,14 +4535,8 @@ def bench_phase(args, tk):
 
 
 def nvidia_smi():
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        out = []
-    return out[0] if out else "nvidia-smi: no output"
+    from vings_mono_tpu_torch.runners.eval_all import card_line
+    return card_line()
 
 # ---------------------------------------------------------------------------
 

@@ -522,10 +522,13 @@ def rasterize_forward(pair_data, tile_chunks, meta, chunk, counters=None,
     if T == 0:
         return out
     lib = _library(cull)
-    err = lib.vm_raster_forward(
-        pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), None if counters is None else counters.data_ptr(),
-        T, p_cap, chunk, torch.cuda.current_stream(dev).cuda_stream)
+    # the C entry points set the kernel's attribute and launch on the
+    # current card: make it the tensors' own
+    with torch.cuda.device(dev):
+        err = lib.vm_raster_forward(
+            pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
+            out.data_ptr(), None if counters is None else counters.data_ptr(),
+            T, p_cap, chunk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rasterize_forward launch")
     rasterize_forward.launches += 1
     return out
@@ -557,11 +560,12 @@ def rasterize_backward(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
     if T == 0:
         return grads
     lib = _library(cull)
-    err = lib.vm_raster_backward(
-        pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
-        out_saved.data_ptr(), g_out.data_ptr(), grads.data_ptr(),
-        int(out_dtype == _BF16), T, p_cap, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # as in rasterize_forward
+        err = lib.vm_raster_backward(
+            pair_data.data_ptr(), tile_chunks.data_ptr(), meta.data_ptr(),
+            out_saved.data_ptr(), g_out.data_ptr(), grads.data_ptr(),
+            int(out_dtype == _BF16), T, p_cap, chunk,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "rasterize_backward launch")
     rasterize_backward.launches += 1
     return grads
@@ -570,10 +574,11 @@ def rasterize_backward(pair_data, tile_chunks, meta, chunk, out_saved, g_out,
 rasterize_backward.launches = 0
 
 
-def kernel_attributes(chunk):
+def kernel_attributes(chunk, device=None):
     """{kernel: {"registers", "blocks_per_sm", "smem_bytes"}} of the built
-    kernels at this chunk size: registers per thread, resident blocks per
-    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and dynamic shared
+    kernels at this chunk size on `device` (default: the current card):
+    registers per thread, resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and dynamic shared
     memory per block. Needs a GPU."""
     lib = _library()
     out = {}
@@ -581,9 +586,10 @@ def kernel_attributes(chunk):
                                   "rasterize_backward_f32",
                                   "rasterize_backward_bf16")):
         regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        err = lib.vm_raster_attributes(which, chunk, ctypes.byref(regs),
-                                       ctypes.byref(blocks),
-                                       ctypes.byref(smem))
+        with torch.cuda.device(device):
+            err = lib.vm_raster_attributes(which, chunk, ctypes.byref(regs),
+                                           ctypes.byref(blocks),
+                                           ctypes.byref(smem))
         _raise_on(lib, err, f"{name} attributes")
         out[name] = {"registers": regs.value, "blocks_per_sm": blocks.value,
                      "smem_bytes": smem.value}

@@ -29,6 +29,13 @@ Backends: NCCL for CUDA ranks on distinct cards; Gloo for CPU ranks and for
 several ranks on one card, with CUDA tensors staged through the host. There
 is no fallback: a CUDA group that names more cards than the machine has
 raises, where JAX's `make_dp_mesh` falls back to the CPU's virtual devices.
+Each NCCL rank's communicator is bound to its own card. An NCCL collective
+is queued on the card and the host would go on, then wait for it in some
+later copy to the host, where a rank that died leaves it waiting until the
+NCCL watchdog's timeout ends the process. So every rank waits for each of
+its NCCL collectives on the host, polling the other processes (the leader
+its followers, a follower its leader): a rank that fails makes the others
+raise. A rank leaves an NCCL group by aborting its communicator (`_leave`).
 
 `make_mesh` builds JAX's (dp, sp) mesh as one group of dp x sp ranks, rank
 (d, s) = d sp + s. `sharded_train_step` runs one mapper step over it: rank
@@ -74,6 +81,7 @@ from ..utils.device import read_deterministic, write_deterministic
 
 DEFAULT_TIMEOUT_S = 600.0   # bound of one collective and of the group's start
 POLL_S = 0.2                # liveness polling period while waiting
+SPIN_S = 5e-5               # host sleep between polls of an NCCL collective
 BIN_FIELDS = ("xyz", "log_scale", "quat", "logit_opacity", "rgb", "alive")
 KERNELS = (tile_kernel.rasterize_forward, tile_kernel.rasterize_backward)
 _ALIGN = 8                  # byte alignment of each tensor in a packed buffer
@@ -211,6 +219,10 @@ def _set_numeric_mode(mode):
 
 
 # ---- the group -------------------------------------------------------------
+class RankError(RuntimeError):
+    """A follower's exception, raised in the leader with its traceback."""
+
+
 class DPGroup:
     """One rank's handle of the dp process group; the leader's also owns
     the followers. The collectives are SPMD: every rank calls the same one
@@ -232,11 +244,14 @@ class DPGroup:
         self.verify = False       # compare state digests after every call
         self.comm_s = 0.0         # host seconds in collectives (this rank)
         self.comm_calls = 0
+        self.comm_bytes = 0       # bytes of the buffers handed to them
         self.calls = 0
         # leader only: the followers and what they report
         self._procs, self._cmd_qs, self._reply_q = [], [], None
         self._tmpdir = None
         self._in_call = False
+        self._early = []          # reports drained while the call ran
+        self._parent = None       # a follower's: the leader's process
         self.launches = {}        # follower rank -> {kernel: launches}
         self.peak_bytes = {}      # follower rank -> peak device bytes
         self.closed = False
@@ -331,10 +346,11 @@ class DPGroup:
                 if q is not None:
                     q.close()
                     q.cancel_join_thread()
-            if self._tmpdir:
-                shutil.rmtree(self._tmpdir, ignore_errors=True)
         if dist.is_initialized():
-            dist.destroy_process_group()
+            _leave(self.backend)
+        # after the group: its teardown may still read the file store
+        if self._tmpdir:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
 
     def alive_followers(self):
         return [p for p in self._procs if p.is_alive()]
@@ -352,20 +368,32 @@ class DPGroup:
     def _raise_errors(self, msgs, cause=None):
         for rank, kind, payload in msgs:
             if kind == "error":
-                raise RuntimeError(f"dp rank {rank} failed:\n{payload}") \
+                raise RankError(f"dp rank {rank} failed:\n{payload}") \
                     from cause
 
     def _check_followers(self, cause=None):
-        self._raise_errors(self._drain(), cause)
+        msgs = self._drain()
+        self._raise_errors(msgs, cause)
+        # the reports of followers that ended the call before this rank
+        self._early += msgs
         dead = [(i + 1, p.exitcode) for i, p in enumerate(self._procs)
                 if not p.is_alive()]
         if dead:
             raise RuntimeError(f"dp follower(s) exited (rank, exit code): "
                                f"{dead}") from cause
 
+    def _check_peers(self):
+        """Raise if another rank failed: the leader checks its followers, a
+        follower that its leader is alive."""
+        if self.rank == 0:
+            self._check_followers()
+        elif self._parent is not None and not self._parent.is_alive():
+            raise RuntimeError(f"dp rank {self.rank}: the leader exited")
+
     def _collect(self):
         """The followers' reports of the call that just ran on this rank."""
-        reports = {}
+        reports = {rank: payload for rank, _, payload in self._early}
+        self._early = []
         deadline = time.monotonic() + self.timeout_s
         while len(reports) < self.world - 1:
             try:
@@ -377,7 +405,7 @@ class DPGroup:
                                        f"{self.timeout_s} s")
                 continue
             if kind == "error":
-                raise RuntimeError(f"dp rank {rank} failed:\n{payload}")
+                raise RankError(f"dp rank {rank} failed:\n{payload}")
             reports[rank] = payload
         return reports
 
@@ -396,6 +424,8 @@ class DPGroup:
         self._in_call = True
         try:
             out, replicated = BODIES[name](self, static, payload)
+        except RankError:
+            raise   # a follower's own report, seen while waiting on it
         except BaseException as e:
             # a follower's failure is the usual cause of a failed
             # collective here: give its report time to arrive
@@ -423,16 +453,37 @@ class DPGroup:
         return out
 
     # -- collectives (every rank, same order) --
-    def _timed(self, fn):
-        if self.staged:
-            # the host copy waits for the device anyway; start the clock
-            # after the work queued before the collective
+    def _timed(self, fn, nbytes):
+        if self.device.type == "cuda":
+            # the host copy and the NCCL wait both wait for the work queued
+            # before the collective: start the clock after it
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         out = fn()
         self.comm_s += time.perf_counter() - t0
         self.comm_calls += 1
+        self.comm_bytes += int(nbytes)
         return out
+
+    def _run(self, collective, *args, **kwargs):
+        """One torch.distributed collective, ended when this returns. Gloo's
+        returns when it has ended; NCCL's is queued on the card, so wait for
+        it here, polling the other ranks (see the module's docstring)."""
+        if self.backend != "nccl":
+            collective(*args, **kwargs)
+            return
+        work = collective(*args, async_op=True, **kwargs)
+        t0 = next_poll = time.monotonic()
+        while not work.is_completed():
+            now = time.monotonic()
+            if now >= next_poll:
+                self._check_peers()
+                if now - t0 > self.timeout_s:
+                    raise RuntimeError(f"dp rank {self.rank}: a collective "
+                                       f"did not end in {self.timeout_s} s")
+                next_poll = now + POLL_S
+            time.sleep(SPIN_S)
+        work.wait()
 
     def _empty(self, metas):
         n = sum(_nbytes(m)[1] for m in metas if m is not None)
@@ -447,9 +498,10 @@ class DPGroup:
                 buf = pack(tensors, self.device).to(self.comm_device)
             else:
                 buf = self._empty(metas)
-            dist.broadcast(buf, src=0)
+            self._run(dist.broadcast, buf, src=0)
             return buf
-        buf = self._timed(run)
+        buf = self._timed(run, sum(_nbytes(m)[1] for m in metas
+                                   if m is not None))
         if self.rank == 0:
             return list(tensors)
         return unpack(buf.to(self.device), metas)
@@ -472,9 +524,9 @@ class DPGroup:
                     b = pack(p, self.device)
                     bufs.append(torch.cat([b, b.new_zeros(size - b.numel())])
                                 .to(self.comm_device))
-            dist.scatter(out, scatter_list=bufs, src=0)
+            self._run(dist.scatter, out, scatter_list=bufs, src=0)
             return out
-        out = self._timed(run)
+        out = self._timed(run, size * (self.world if self.rank == 0 else 1))
         if self.rank == 0:
             return list(parts[0])
         return unpack(out.to(self.device), metas[self.rank])
@@ -502,9 +554,11 @@ class DPGroup:
             buf = pack(tensors, self.device).to(self.comm_device)
             bufs = [torch.empty_like(buf) for _ in range(self.world)] \
                 if self.rank == 0 else None
-            dist.gather(buf, gather_list=bufs, dst=0)
+            self._run(dist.gather, buf, gather_list=bufs, dst=0)
             return bufs
-        bufs = self._timed(run)
+        nbytes = sum(_nbytes(m)[1] for m in metas if m is not None)
+        bufs = self._timed(run, nbytes * (self.world if self.rank == 0
+                                          else 1))
         if self.rank != 0:
             return None
         parts = [list(tensors)] + [unpack(b.to(self.device), metas)
@@ -520,7 +574,7 @@ class DPGroup:
 
         def run():
             if not self.staged:
-                dist.all_reduce(buf, op=rop)
+                self._run(dist.all_reduce, buf, op=rop)
                 return buf
             key = (buf.numel(), buf.dtype)
             if key not in self._pinned:
@@ -528,17 +582,31 @@ class DPGroup:
                     buf.shape, dtype=buf.dtype, pin_memory=True)
             host = self._pinned[key]
             host.copy_(buf)
-            dist.all_reduce(host, op=rop)
+            self._run(dist.all_reduce, host, op=rop)
             # a synchronous copy: the buffer is free again on return
             return host.to(self.device)
-        return self._timed(run)
+        return self._timed(run, buf.numel() * buf.element_size())
 
 
 def _init_process_group(group, init):
+    # NCCL: bind the communicator to the rank's card, whichever card is
+    # current in the calling thread
     dist.init_process_group(
         group.backend, init_method=init, rank=group.rank,
         world_size=group.world,
-        timeout=datetime.timedelta(seconds=group.timeout_s))
+        timeout=datetime.timedelta(seconds=group.timeout_s),
+        device_id=group.device if group.backend == "nccl" else None)
+
+
+def _leave(backend):
+    """Leave the process group. NCCL's communicator is aborted, not shut
+    down: every collective this rank queued has ended (`DPGroup._run`
+    waits for each), and a shutdown would wait for the other ranks, which
+    a failed call can leave inside a collective."""
+    if backend == "nccl":
+        dist.distributed_c10d._abort_process_group()
+    else:
+        dist.destroy_process_group()
 
 
 def _follower_main(rank, world, init, device, backend, timeout_s, cmd_q,
@@ -549,19 +617,20 @@ def _follower_main(rank, world, init, device, backend, timeout_s, cmd_q,
     try:
         _set_numeric_mode(mode)
         group = DPGroup(rank, world, device, backend, timeout_s, sp)
+        group._parent = mp.parent_process()
         if group.device.type == "cuda":
             torch.cuda.set_device(group.device)
         _init_process_group(group, init)
     except BaseException:   # reported to the leader, which raises it
         reply_q.put((rank, "error", traceback.format_exc()))
         return
-    parent = mp.parent_process()
     try:
         while True:
             try:
                 msg = cmd_q.get(timeout=POLL_S)
             except queue.Empty:
-                if parent is not None and not parent.is_alive():
+                if group._parent is not None and \
+                        not group._parent.is_alive():
                     return
                 continue
             if msg is None:
@@ -582,7 +651,7 @@ def _follower_main(rank, world, init, device, backend, timeout_s, cmd_q,
                 return
             reply_q.put((rank, "ok", rep))
     finally:
-        dist.destroy_process_group()
+        _leave(backend)
 
 
 def make_dp_mesh(dp, platform=None, devices=None, backend=None):

@@ -34,19 +34,31 @@ NOTES = {"superpoint": "the random control is SuperPoint with weights "
 
 
 def _stdout(cmd):
+    """The lines `cmd` printed, or none where it could not run."""
     try:
-        out = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=60).stdout.strip().splitlines()
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()
     except (OSError, subprocess.SubprocessError):
-        out = []
-    return out[0] if out else None
+        return []
+
+
+def card_lines():
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`'s
+    lines, one a card, or a note that it gave none."""
+    return _stdout(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]) or ["nvidia-smi: no output"]
 
 
 def card_line():
-    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`'s
-    first line, or a note that it gave none."""
-    return _stdout(["nvidia-smi", "--query-gpu=name,power.limit",
-                    "--format=csv,noheader"]) or "nvidia-smi: no output"
+    """The first card's line of `card_lines`."""
+    return card_lines()[0]
+
+
+def commit_of(commit=None):
+    """`commit`, else `git rev-parse HEAD` where the checkout has its
+    history, else "unknown"."""
+    return commit or (_stdout(["git", "rev-parse", "HEAD"])
+                      or ["unknown"])[0]
 
 
 def last_json(text):
@@ -69,7 +81,7 @@ def run_entry_points(tag, runs, out_dir, commit=None, notes=None):
     Returns the names that failed (a non-zero exit, or no record)."""
     os.makedirs(out_dir, exist_ok=True)
     card = card_line()
-    commit = commit or _stdout(["git", "rev-parse", "HEAD"]) or "unknown"
+    commit = commit_of(commit)
     failed = []
     for name, module in runs.items():
         module = f"vings_mono_tpu_torch.runners.{module}"

@@ -99,7 +99,8 @@ class HostPull:
                                      pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            # the copy runs on t's card, which need not be the current one
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t.clone()
             self._event = None

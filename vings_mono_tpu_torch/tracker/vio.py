@@ -133,16 +133,18 @@ class InertialFusion:
         cuda = args[0].is_cuda
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
             if cuda else None
+        # the stream of the tensors' card, which need not be the current one
+        stream = torch.cuda.current_stream(args[0].device) if cuda else None
         if cuda:
-            ev[0].record()
+            ev[0].record(stream)
         S, v, aux = ba_ops.ba_hessian(*args, fixedp=0)
         S, v = S[lo:hi, lo:hi], v[lo:hi]
         flat = torch.cat([S.reshape(-1), v.reshape(-1)])
         if cuda:
-            ev[1].record()
+            ev[1].record(stream)
         host = flat.cpu() if cuda else flat.clone()
         if cuda:
-            ev[2].record()
+            ev[2].record(stream)
             ev[2].synchronize()
             self.stats["hessian_ms"] += ev[0].elapsed_time(ev[1])
             self.stats["pull_ms"] += ev[1].elapsed_time(ev[2])
