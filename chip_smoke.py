@@ -94,7 +94,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      harness. The self-trained DPT (`MetricDepth`, flax backend) on the
      card against the CPU on three room frames at 240x432; then
      `runners.run.run` on `configs/synthetic/smoke.yaml` with `use_metric`
-     (that DPT) on the `synthetic3d` room (30 frames at 240x432), the
+     (that DPT) on the `synthetic3d` room (20 frames at 240x432), the
      overrides written to a temporary YAML, saving the session every 10
      frames: the stage times (`metric`, `checkpoint` among them), the share
      of positive `disps_sens` and the median prior depth, ATE
@@ -102,8 +102,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      the session's size and save ms; both kernels held against their
      plain twins on eval_psnr's render; the same run again, whose poses
      must equal the first run's bit for bit (every runner runs inside
-     `utils.device.reproducible`); and `--resume` from the frame-20
-     session to frame 30 (load ms, keyframe count, pose gap to the first
+     `utils.device.reproducible`); and `--resume` from the frame-10
+     session to frame 20 (load ms, keyframe count, pose gap to the first
      run);
  15. the slice's main path: the image-folder datasets, the remaining
      runners and the trainer. (a) A `kitti_sync` folder of 30 frames of
@@ -125,7 +125,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      before and after; (d) the mobile workers of
      `run_multiprocess_mobile` on 20 frames from a feeder thread in the
      server's place, one finite render per mapped window; (e) the DROID
-     trainer: one clip's loss and gradients card against CPU, 10 steps of
+     trainer: one clip's loss and gradients card against CPU, 5 steps of
      `runners.train_droid`'s loop from the repository's weights (s/step,
      peak memory, losses) and the checkpoint loaded back bitwise; then
      the same for the self-training recipes of SuperPoint, LightGlue,
@@ -139,7 +139,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      `parallel.mesh.sharded_tile_grads` on tests/test_parallel.py's scene
      scaled to 240x800 (K = 8) against dp = 1 on the card and against the
      CPU plain path, both kernels against their twins on rank 1's inputs;
-     (b) phase 4's first 2 windows through GaussianMapper with `parallel`, the
+     (b) phase 4's first window through GaussianMapper with `parallel`, the
      ranks' state digests compared after every call: ms per keyframe and
      the collectives' host ms per iteration beside phase 4's, PSNR, peak
      memory and launches per rank; (c) smoke.yaml's first 20 frames
@@ -158,22 +158,60 @@ Phases, each printing its own lines; any failure exits non-zero:
      tile kernel launched;
  18. the evaluation entry points (`runners.eval_superpoint`, `eval_droid`,
      `eval_track_long`, `eval_loop_e2e`, `eval_long_run`) at reduced
-     depth: 3 room pairs; 16 frames per lane; 24 frames at grid 2x1; 48
-     frames of the loop and of the long run, each without its no-loop
+     depth: 3 room pairs; 16 frames per lane; 16 frames at grid 2x1; 48
+     frames of the loop and 32 of the long run, each without its no-loop
      baseline. Each result has its JAX script's keys and finite ATEs; the
      loop run's and the long run's tracker, mapper and detector sit on the
      card, the kernels launched on every training iteration, and both
      kernels are held against their plain twins on each run's final map
      under its last mapped keyframe's camera;
  19. the bench (`runners.bench.run`): both lanes at 240x432 with the
-     warm-up cut to 10 + 2 frames and the measured passes to 4 frames
+     warm-up cut to 10 + 2 frames and the measured passes to 2 frames
      (the gated lane keeps its 28 + 6 warm-up frames: with fewer its
      gate had keyframed nothing); the eight keys of the JAX package's
      bench.py, finite, both lanes mapped, on the card; both kernels
      against their plain twins on each lane's final map under its last
      keyframe's camera at the bench's chunk 256, and at chunk 512 on the
      same map (the forward's shared memory above the 48 KB default),
-     with their times at both chunks.
+     with their times at both chunks;
+ 20. the shipped configuration families the card had not run, through
+     `runners.run.run` at their committed configurations' full widths
+     (profile_configs.py's writers and `run_family`): F1
+     configs/waymo/nerfslam/Scene01.yaml (vo_nerfslam, 1280x1920 JPEGs ->
+     344x616), F2 configs/kitti360/unsync/kitti360_2013_05_28_drive_0000.yaml
+     (vio, v0_kitti360, storage, vis, save_buffer 8000; 512x1392 ->
+     264x728), F3 configs/rtg/hotel.yaml (vo, vis; 720x1280 cropped ->
+     360x640), F4 configs/hierarchical/smallcity.yaml (vo with the npz
+     metric prior; 690x1024 -> 344x616), F5
+     configs/kitti/sync/kitti_2011_10_03_drive_0027_LC.yaml (vio with loop
+     closure; 376x1241 -> 344x616), each on a folder of the synthetic3d
+     room written in its dataset module's layout, at the fewest frames
+     that map two windows (F2 needs two rollups; F5 runs to its first
+     loop calls): two windows, both kernels on every training iteration,
+     finite poses and map, both kernels against their plain twins on the
+     final map under the newest mapped keyframe's camera whose depths
+     were kept. F5 makes no loop attempt here: its newest keyframe (~18)
+     is younger than the looper's min_history (35), and over a run long
+     enough (profile_configs.py, 96 frames) its VIO positions run away
+     after VI init, whose alignment fails or mis-scales on these poses in
+     both packages (ROADMAP.md's recorded divergences), so no keyframe
+     falls within the search radius. The detector is called
+     once directly on the final state instead (SuperPoint, LightGlue, the
+     map render and PnP at 344x616), and the stage it reached is printed.
+The profiled phases (6, 7, 8, 10) read device time through
+`utils.profiling.device_time` (kernels, memcpy and memset only, busy as
+a union over streams) and fail where busy exceeds wall.
+Cuts of depth that keep the script inside its time with phase 20 (no
+width changed): phase 19's measured passes 4 -> 2 frames; 16b's
+replay 2 -> 1 window on one card (profile_multicard.py keeps 2); phase
+14's run 30 -> 20 frames, its session resumed from frame 10, not 20;
+phase 18's eval_long_run 48 -> 32 frames and eval_track_long 24 -> 16;
+15e's trainer and recipe loops 10 -> 5 steps; 17a's timed steps 3 -> 2.
+Phases 18 and 20 run in a worker process (`--worker`, started after
+phase 11 and joined after phase 15) beside phases 12-15, whose walls and
+stage times hold its share of the card and the host; the profiled and
+timed phases (5-8, 10, 16, 17, 19) run alone. Phase 20 writes the next
+family's folder while the current one runs.
 Every phase runs with PyTorch's default numeric flags: the port clears
 TF32 where it computes in f32 (`utils.device.true_f32`), and its runners
 and trainers enter `utils.device.reproducible` themselves.
@@ -542,42 +580,12 @@ def profile_keyframe(mapper, window):
     """Phase 6: one more keyframe event (the last window again, its newest
     keyframe under a new timestamp) under torch.profiler — where a
     keyframe's time goes on the device."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     window = dict(window)
     stamps = np.asarray(window["viz_out_idx_to_f_idx"]).copy()
     stamps[-1] = stamps[-1] + 1
     window["viz_out_idx_to_f_idx"] = stamps
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mapper.run(window)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies, memsets): the host ops
-        # that launched them carry the same time again
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    if busy == 0:
-        print(f"phase 6 profile: keyframe {wall_ms:.1f} ms wall; device "
-              f"time not measured (the profiler saw no device events)",
-              flush=True)
-        return
-    print(f"phase 6 profile: keyframe {wall_ms:.1f} ms wall, device busy "
-          f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}), "
-          f"{sum(r[1] for r in rows)} device ops", flush=True)
-    for ms, n, key in rows[:12]:
-        print(f"phase 6   {ms:9.2f} ms {n:7d}x  {key[:90]}", flush=True)
-
+    wall_ms, dev = profiled(lambda: mapper.run(window))
+    print_profile("phase 6", "keyframe", wall_ms, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -671,27 +679,17 @@ def card_follows_cpu(seed):
           "the tracker on the card left the CPU run")
 
 
-def device_rows(prof):
-    """(ms, count, name) of every device-side event of a profile, largest
-    first."""
-    rows = []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    return rows
-
-
 def profiled(fn, again=False):
-    """Run fn once under torch.profiler; (wall ms, device rows). The tracer
-    now and then hands back no device event for a short window; with
-    `again`, fn is then run once more (only for an fn that may be)."""
+    """Run fn once under torch.profiler; (wall ms, (busy ms, rows)) with
+    the device time read by `utils.profiling.device_time`: kernels,
+    memcpy and memset only, busy as a union over streams, rows (ms,
+    count, name) largest first. The tracer now and then hands back no
+    device event for a short window; with `again`, fn is then run once
+    more (only for an fn that may be)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from vings_mono_tpu_torch.utils.profiling import (device_time,
+                                                      profile_events)
     for _ in range(3 if again else 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -700,18 +698,24 @@ def profiled(fn, again=False):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = device_rows(prof)
+        busy, rows = device_time(profile_events(prof))
         if rows:
             break
-    return wall_ms, rows
+    return wall_ms, (busy, rows)
 
 
-def print_profile(tag, what, wall_ms, rows, top=12):
-    busy = sum(r[0] for r in rows)
+def print_profile(tag, what, wall_ms, dev, top=12):
+    """The busy time, idle share and largest device rows of a profiled
+    call; fails where the profiler saw no device work, or where the busy
+    time exceeds the wall (a reader that counts what is no device work)."""
+    busy, rows = dev
     check(busy > 0, f"{tag}: the profiler saw no device events")
+    check(busy <= wall_ms, f"{tag}: device busy {busy:.1f} ms > wall "
+          f"{wall_ms:.1f} ms")
     print(f"{tag} profile: {what} {wall_ms:.1f} ms wall, device busy "
-          f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}), "
-          f"{sum(r[1] for r in rows)} device ops", flush=True)
+          f"{busy:.1f} ms as a union over streams (idle share "
+          f"{1 - busy / wall_ms:.3f}), {sum(r[1] for r in rows)} device "
+          f"ops (kernels, memcpy, memset)", flush=True)
     for ms, n, key in rows[:top]:
         print(f"{tag}   {ms:9.2f} ms {n:7d}x  {key[:90]}", flush=True)
 
@@ -807,7 +811,7 @@ def tracker_op_times(tracker):
         rows = []
         for name, fn in ops:
             ms = cuda_ms(fn, 10, warmup=2)
-            _, dev = profiled(fn, again=True)
+            _, (_, dev) = profiled(fn, again=True)
             n_ops = sum(r[1] for r in dev)
             rows.append((name, ms, n_ops))
             print(f"phase 7 op {name}: {ms:.3f} ms, "
@@ -2858,9 +2862,9 @@ METRIC_OVERRIDES = {
     "use_metric": True,
     "metric": {"backend": "flax",
                "weights": str(METRIC_W)},
-    "dataset": {"module": "synthetic3d", "n_frames": 30}}
+    "dataset": {"module": "synthetic3d", "n_frames": 20}}
 CHECKPOINT_EVERY = 10
-RESUME_AT = 20
+RESUME_AT = 10
 
 
 def metric_depth_phase(cfg):
@@ -2917,7 +2921,7 @@ def metric_session_phase(args, tk):
     with use_metric (the flax DPT) on synthetic3d, checkpointing every 10
     frames; the evaluation harness and the MFU over it; the kernels on
     eval_psnr's render; a second identical run for the card's spread; the
-    resume from the frame-20 session. Returns the launch counts and the
+    resume from the frame-RESUME_AT session. Returns the launch counts and the
     kernels' largest errors."""
     import tempfile
     import torch
@@ -3105,7 +3109,7 @@ def metric_session_phase(args, tk):
 KITTI_FRAMES = 30           # frames of the written kitti_sync folder
 KITTI_DT = 0.1              # KITTI's 10 Hz camera
 MOBILE_FRAMES = 20          # frames fed to the mobile workers
-TRAIN_STEPS = 10            # steps of the trainer's loop
+TRAIN_STEPS = 5             # steps of the trainer's loop
 TRAIN_UNROLL = 8            # train_droid's --num-steps default
 # card vs CPU on one training clip: the loss to 1e-4 relative; each
 # parameter's gradient to 1e-2 of its own largest magnitude (8 unrolled
@@ -3207,16 +3211,25 @@ def agreement(tag, a, b, what):
     return len(common)
 
 
-def seen_camera(mapper, cams):
-    """The newest trained keyframe's camera under which the final map has
-    pairs to rasterize: (c2w, intrinsic, label). Prints the cameras
-    passed over (a keyframe whose depths were all gated away seeded
-    nothing, and the map may lie behind or beside it)."""
+# a camera for the twin check: the newest trained keyframe whose depths
+# were kept at this share of its pixels or more (a keyframe whose depths
+# were gated away seeded nothing, and the map may lie behind or beside it)
+# and under which the final map has this many pairs
+SEEN_KEPT_SHARE = 0.5
+SEEN_MIN_PAIRS = 1000
+
+
+def seen_camera(mapper, cams, tag="phase 15a"):
+    """The newest trained keyframe's camera with its depths kept at
+    SEEN_KEPT_SHARE of its pixels or more and SEEN_MIN_PAIRS pairs of the
+    final map under it: (c2w, intrinsic, label). Where none has both, the
+    camera with the most pairs, said so. Prints the cameras passed over."""
     import torch
     from vings_mono_tpu_torch.mapper.cameras import camera_from_intrinsic
     from vings_mono_tpu_torch.ops.rasterizer import bin_for_camera
     s = mapper.state
     alive = s.xyz[s.alive]
+    best = None
     for back, (idx, c2w, intr, share) in enumerate(reversed(cams)):
         w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
                               device=s.xyz.device)
@@ -3228,16 +3241,23 @@ def seen_camera(mapper, cams):
                                    **mapper.bin_kwargs).n_pairs)
             dist = (alive - torch.as_tensor(c2w[:3, 3], dtype=torch.float32,
                                             device=alive.device)).norm(dim=-1)
-        print(f"phase 15a camera of the keyframe mapped at frame {idx} "
+        print(f"{tag} camera of the keyframe mapped at frame {idx} "
               f"({back} before the newest): {n} pairs; its depths kept at "
               f"{share:.4f} of its pixels; {len(alive)} live surfels, "
               f"distance to its centre median {float(dist.median()):.3f}, "
               f"min {float(dist.min()):.3f}", flush=True)
-        if n > 0:
-            return c2w, intr, (f"the final map under the camera of the "
-                               f"keyframe mapped at frame {idx}, {back} "
-                               f"before the newest")
-    fail("phase 15a: no trained keyframe's camera sees the final map")
+        label = (f"the final map under the camera of the keyframe mapped "
+                 f"at frame {idx}, {back} before the newest")
+        if share >= SEEN_KEPT_SHARE and n >= SEEN_MIN_PAIRS:
+            return c2w, intr, label
+        if n > 0 and (best is None or n > best[0]):
+            best = (n, c2w, intr, label)
+    if best is None:
+        fail(f"{tag}: no trained keyframe's camera sees the final map")
+    print(f"{tag}: no keyframe has its depths kept at {SEEN_KEPT_SHARE} of "
+          f"its pixels and {SEEN_MIN_PAIRS} pairs under it; the camera "
+          f"with the most pairs ({best[0]}) is used", flush=True)
+    return best[1:]
 
 
 def kitti_folder_phase(args, tk):
@@ -3679,6 +3699,7 @@ DP_LOSS_REL = 1e-5
 # bf16 per-pair gradients against the twin's, phase 3's bf16 tolerance
 DP_CPU_GRAD = BWD_TOL["bf16"]
 DP_SMOKE_FRAMES = 20        # 16c: smoke.yaml's first 20 of its 30 frames
+DP_REPLAY_WINDOWS = 1       # 16b's windows (profile_multicard.py: 2)
 
 
 def child_pids():
@@ -3833,7 +3854,7 @@ def dp_grads_phase(args, tk, group, label):
 
 
 def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
-                    label):
+                    label, windows=REPLAY_WINDOWS):
     """16b: phase 4's replay through GaussianMapper with `parallel`, every
     call digest-checked across the ranks (`verify`). Returns the numbers
     printed."""
@@ -3845,7 +3866,7 @@ def dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
     t0 = time.perf_counter()
     mapper, records = run_mapping.run(
         dict(cfg, parallel=parallel), str(OUT / f"run_dp_{label}"),
-        max_windows=REPLAY_WINDOWS)
+        max_windows=windows)
     run_s = time.perf_counter() - t0
     g = mapper.group
     ranks = {0: {k.__name__: k.launches for k in (tk.rasterize_forward,
@@ -3977,7 +3998,7 @@ def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
             group.close()
         check_no_children(f"phase 16a [{label}]", group)
         dp_replay_phase(args, tk, cfg, phase4_ms, phase4_psnr, parallel,
-                        label)
+                        label, windows=DP_REPLAY_WINDOWS)
     launches = dp_smoke_phase(args, tk, smoke_stats, DP_GLOO,
                               "gloo")["launches"]
     print(f"phase 16 in {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3990,7 +4011,7 @@ def dp_phase(args, tk, cfg, phase4_ms, phase4_psnr, smoke_stats):
 
 SP_LOSS_REL = 1e-6          # sp 2 against the whole-image step at 240x800
 SP_SMALL_LOSS_REL = 1e-5    # 17b, as tests/test_torch_sp.py
-SP_STEPS = 3                # timed steps at each of sp 2 and sp 1
+SP_STEPS = 2                # timed steps at each of sp 2 and sp 1
 NAIVE_SUB = (5, 10)         # 17c: every 5th row and 10th column: 48x80
 NAIVE_MAPPER = {"capacity": 2048, "pair_capacity": 4096, "chunk": 64,
                 "kf_capacity": 4, "points_first_frame": 512,
@@ -4301,7 +4322,7 @@ def eval_runs():
         ("eval_droid", ["--frames", "16", "--weights", droid],
          ("random", "trained", "trained_gated", "frames",
           "trained_beats_random", "gating_selective")),
-        ("eval_track_long", ["--frames", "24", "--grid", "2x1",
+        ("eval_track_long", ["--frames", "16", "--grid", "2x1",
                              "--weights", droid],
          ("2x1", "frames", "revs")),
         ("eval_loop_e2e", ["--frames", "48", "--skip-baseline",
@@ -4309,7 +4330,7 @@ def eval_runs():
          ("frames", "keyframes", "detect_attempts", "loops_closed",
           "closed_at", "ate_rmse_m", "ate_no_loop_m", "closure_deltas",
           "stage_histogram", "loop_traces", "traces")),
-        ("eval_long_run", ["--frames", "48", "--skip-baseline",
+        ("eval_long_run", ["--frames", "32", "--skip-baseline",
                            "--droid-weights", droid] + sp,
          ("frames", "revs", "full")))
 
@@ -4446,7 +4467,7 @@ def eval_summary(name, out):
 # ---------------------------------------------------------------------------
 # phase 19: the bench (runners/bench.py) at full width, reduced depth
 
-BENCH_SIZES = {"n_warm": 10, "n_meas": 4, "g_warm": 28}
+BENCH_SIZES = {"n_warm": 10, "n_meas": 2, "g_warm": 28}
 
 
 def bench_phase(args, tk):
@@ -4534,6 +4555,115 @@ def bench_phase(args, tk):
     return n, errs, ms[512]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the shipped configuration families at full width
+# ---------------------------------------------------------------------------
+
+def families_phase(args):
+    """Phase 20: profile_configs.py's five families (F1 Waymo vo_nerfslam,
+    F2 KITTI-360 vio + v0_kitti360, F3 RTG, F4 Hierarchical + npz prior,
+    F5 KITTI loop closure) through runners.run.run at their committed
+    configurations' full widths, each on a folder written in its dataset
+    module's layout, at the fewest frames that map two windows (F5: that
+    reach its first loop calls; an attempt needs min_history 35
+    keyframes, which these frames do not make, so the loop detector is
+    then called directly on the final state).
+    `profile_configs.run_family` checks each run (two windows, both
+    kernels on every training iteration, finite poses and map) and holds
+    both kernels against their plain twins on its final map. A thread
+    writes the next family's folder while one runs. Returns each
+    family's launches and the kernels' largest errors."""
+    from concurrent.futures import ThreadPoolExecutor
+    import profile_configs as pc
+    launches, errs = {}, [0.0, 0.0, 0.0, 0.0]
+    root = OUT / "families"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def write(key):
+        fam = pc.FAMILIES[key]
+        cfg = pc.family_cfg(fam, root / key / "folder", root / key, DEVICE)
+        return pc.write_folder(fam, root / key / "folder", fam.smoke_frames,
+                               cfg, workers=6)
+    with ThreadPoolExecutor(1) as writer:
+        written = {key: writer.submit(write, key) for key in pc.FAMILIES}
+        for key, fam in pc.FAMILIES.items():
+            t0 = time.perf_counter()
+            rec = pc.run_family(fam, fam.smoke_frames, root / key, DEVICE,
+                                args.seed, tag=f"phase 20 {key}",
+                                written=written[key])
+            if key == "F5":
+                # no attempt is possible here: the newest keyframe is
+                # younger than min_history; the detector is then called
+                # directly on the final state
+                check(rec["stage_n"].get("loop", 0) >= 1,
+                      "phase 20 F5: the looper never ran")
+                check(bool(rec["loop_attempts"] or rec.get("direct_detect")),
+                      "phase 20 F5: the loop detector never ran")
+            launches[key] = rec["launches"]
+            got = [rec["max_abs_err"]["rasterize_forward"],
+                   rec["max_abs_err"]["rasterize_backward"],
+                   rec["max_err_over_scale"]["rasterize_forward"],
+                   rec["max_err_over_scale"]["rasterize_backward"]]
+            errs = [max(a, b) for a, b in zip(errs, got)]
+            print(f"phase 20 {key} in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return launches, errs
+
+
+def run_worker(args):
+    """Phases 18 and 20 in a process of their own (`--worker PATH`), which
+    main() starts after phase 11 and joins after phase 15, so that they
+    run beside phases 12-15: the card and the host's cores have room for
+    both, and the script keeps inside its time. No profiled or timed phase
+    (5-8, 10, 16, 17, 19) runs beside it. Writes their launches and the
+    kernels' largest errors to PATH as JSON."""
+    from vings_mono_tpu_torch.utils.device import resolve_device
+    resolve_device(DEVICE)
+    from vings_mono_tpu_torch.ops.rasterizer import tile_kernel as tk
+    t0 = time.perf_counter()
+    eval_launches, eval_errs = eval_phase(args, tk)
+    print(f"chip_smoke worker: phase 18 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    family_launches, family_errs = families_phase(args)
+    print(f"chip_smoke worker: phase 20 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    pathlib.Path(args.worker).write_text(json.dumps({
+        "eval_launches": eval_launches, "eval_errs": eval_errs,
+        "family_launches": family_launches, "family_errs": family_errs}))
+
+
+def start_worker(args):
+    """The worker process of phases 18 and 20, its output to a log."""
+    import subprocess
+    out = OUT / "worker.json"
+    out.unlink(missing_ok=True)
+    log = open(OUT / "worker.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+         str(args.seed), "--worker", str(out)], cwd=str(ROOT),
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    print(f"chip_smoke: phases 18 and 20 run in worker process {proc.pid} "
+          f"beside phases 12-15 (its output follows phase 15)", flush=True)
+    return proc, out
+
+
+def join_worker(proc, out, timeout):
+    """Wait for the worker, print its output, fail unless it passed;
+    returns its JSON."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except Exception:
+        proc.kill()
+        proc.wait()
+        raise
+    print((OUT / "worker.log").read_text(), end="", flush=True)
+    check(rc == 0 and out.is_file(), f"the worker of phases 18 and 20 "
+          f"exited {rc}")
+    return json.loads(out.read_text())
+
+
 def nvidia_smi():
     from vings_mono_tpu_torch.runners.eval_all import card_line
     return card_line()
@@ -4549,9 +4679,18 @@ def main(argv=None):
                    help="camera frames of phase 7")
     p.add_argument("--vio-frames", type=int, default=60,
                    help="camera frames of phase 8")
+    p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.worker:
+        return run_worker(args)
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"chip_smoke: {what} in {now - laps[-1]:.1f} s", flush=True)
+        laps.append(now)
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -4719,44 +4858,69 @@ def main(argv=None):
               f"bound: the bound's count is wrong")
     profile_keyframe(mapper, last)
     del mapper
-
+    lap("phases 1-6")
     # ---- 7. the VO slice, then 10. global BA on its tracker
     vo_launches, _, _, vo_tracker, vo_cfg = vo_slice(args, tk)
     backend_defaults = global_ba_phase(vo_tracker, vo_cfg)
     del vo_tracker
     banded_at_scale(backend_defaults, H // 8, W // 8)
+    lap("phases 7 and 10")
     # ---- 8. the VIO + storage slice (with vis)
     vio_launches = vio_slice(args, tk)
+    lap("phase 8")
     # ---- 9. smoke_vio.yaml as committed: the slice's main path
     smoke_launches, smoke_errs = smoke_vio_phase(args, tk)
+    lap("phase 9")
     # ---- 11. the mapper's options on phase 4's replay
-    opt_launches = mapper_options_phase(args, tk, cfg, float(np.mean(kf_ms)),
-                                        win_dir, args.seed)
-    # ---- 12. smoke.yaml as committed: loop closure and dynamic masks
-    all_launches, all_errs, end, smoke_stats = smoke_phase(args, tk)
-    # ---- 13. the learned nets and the rectification, card against CPU
-    detector_phase(args.seed + 40)
-    fastsam_phase(args.seed + 41)
-    retrain_errs = rectification_phase(end, args.seed + 50)
-    del end
-    # phase 12's loop renders and phase 13's retrain
-    all_errs = [max(x, y) for x, y in zip(all_errs, retrain_errs)]
-    # ---- 14. metric depth, sessions, the evaluation harness: the main path
-    metric_launches, metric_errs = metric_session_phase(args, tk)
-    # ---- 15. the kitti_sync folder through the runners: the main path;
-    # then the trainer
-    folder_launches, main_errs = kitti_folder_phase(args, tk)
-    train_phase(args)
-    recipe_phase(args)
+    opt_launches = mapper_options_phase(
+        args, tk, cfg, float(np.mean(kf_ms)), win_dir, args.seed)
+    lap("phase 11")
+    # ---- 18 and 20 run in a worker process beside phases 12-15
+    worker, worker_out = start_worker(args)
+    try:
+        # ---- 12. smoke.yaml as committed: loop closure and dynamic masks
+        all_launches, all_errs, end, smoke_stats = smoke_phase(args, tk)
+        lap("phase 12")
+        # ---- 13. the learned nets and the rectification, card against CPU
+        detector_phase(args.seed + 40)
+        fastsam_phase(args.seed + 41)
+        retrain_errs = rectification_phase(end, args.seed + 50)
+        del end
+        # phase 12's loop renders and phase 13's retrain
+        all_errs = [max(x, y) for x, y in zip(all_errs, retrain_errs)]
+        lap("phase 13")
+        # ---- 14. metric depth, sessions, the evaluation harness
+        metric_launches, metric_errs = metric_session_phase(args, tk)
+        lap("phase 14")
+        # ---- 15. the kitti_sync folder through the runners: the main path;
+        # then the trainer
+        folder_launches, main_errs = kitti_folder_phase(args, tk)
+        lap("phase 15a-d")
+        train_phase(args)
+        recipe_phase(args)
+        lap("phase 15e")
+        # ---- 18. the evaluation entry points and 20. the shipped
+        # configuration families at full width, from the worker
+        got = join_worker(worker, worker_out, timeout=1200)
+        lap("the wait for the worker (phases 18 and 20)")
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    eval_launches, eval_errs = got["eval_launches"], got["eval_errs"]
+    family_launches = got["family_launches"]
+    family_errs = got["family_errs"]
     # ---- 16. data parallelism over the keyframe window
-    dp_launches, dp_errs = dp_phase(args, tk, cfg, float(np.mean(kf_ms)),
-                                    records[-1]["psnr"], smoke_stats)
+    dp_launches, dp_errs = dp_phase(
+        args, tk, cfg, float(np.mean(kf_ms)), records[-1]["psnr"],
+        smoke_stats)
+    lap("phase 16")
     # ---- 17. the mesh's sp row split, and mapper.impl: naive
     sp_launches, sp_errs = sp_phase(args, tk)
-    # ---- 18. the evaluation entry points
-    eval_launches, eval_errs = eval_phase(args, tk)
+    lap("phase 17")
     # ---- 19. the bench
     bench_launches, bench_errs, bench_ms512 = bench_phase(args, tk)
+    lap("phase 19")
     kernels = []
     for name, line, err, err_rel, err_metric, err_smoke, err_vio, \
             err_800 in (
@@ -4779,6 +4943,8 @@ def main(argv=None):
             "launches_eval_loop_e2e": eval_launches["eval_loop_e2e"][name],
             "launches_eval_long_run": eval_launches["eval_long_run"][name],
             "launches_bench": bench_launches[name],
+            **{f"launches_config_{k}": n[name]
+               for k, n in family_launches.items()},
             "launches_smoke": all_launches[name],
             "launches_smoke_vio": smoke_launches[name],
             "launches_vio": vio_launches[name],
@@ -4793,6 +4959,9 @@ def main(argv=None):
             "max_abs_err_sp": sp_errs[0 if key == "fwd" else 1],
             "max_abs_err_eval": eval_errs[0 if key == "fwd" else 1],
             "max_abs_err_bench": bench_errs[0 if key == "fwd" else 1],
+            "max_abs_err_configs": family_errs[0 if key == "fwd" else 1],
+            "max_err_over_scale_configs":
+                family_errs[2 if key == "fwd" else 3],
             "ms_chunk512_bench": bench_ms512[0 if key == "fwd" else 1],
             "max_abs_err_smoke": err_smoke,
             "max_abs_err_smoke_vio": err_vio,
@@ -4800,7 +4969,7 @@ def main(argv=None):
             "ms": times[key],
             "plain_ms": times[key + "_plain"], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None})
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} "
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -31,13 +31,16 @@ import chip_smoke as cs  # noqa: E402
 
 
 def ops(prof):
-    dev, host = {}, {}
-    for ev in prof.key_averages():
-        if "CUDA" in str(getattr(ev, "device_type", "")):
-            us = getattr(ev, "self_device_time_total", 0)
-            dev[ev.key] = (us / 1e3, ev.count)
-        else:
-            host[ev.key] = (ev.self_cpu_time_total / 1e3, ev.count)
+    """{name: (ms, count)} of the device work (`utils.profiling.
+    device_time`: kernels, memcpy and memset, never a program range) and
+    of the host ops."""
+    from vings_mono_tpu_torch.utils.profiling import (device_time,
+                                                      profile_events)
+    _, rows = device_time(profile_events(prof))
+    dev = {name: (ms, n) for ms, n, name in rows}
+    host = {ev.key: (ev.self_cpu_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if "CUDA" not in str(getattr(ev, "device_type", ""))}
     return dev, host
 
 

@@ -1,10 +1,10 @@
-"""The trace readers of runners/bench_common.py (the device's busy time as
-an interval union, device time per program through `gpu_user_annotation`
-ranges) on hand-written chrome traces; the named program ranges in a CPU
-`torch.profiler` trace of the mapper, the tracker and global BA; the MFU
-tool's constants and raster term against scripts/mfu.py read with `ast`;
-and, under `slow`, the tools' whole runs at small sizes on the CPU. No
-JAX."""
+"""The trace readers (utils/profiling.py's device busy time as an
+interval union; runners/bench_common.py's device time per program
+through `gpu_user_annotation` ranges) on hand-written chrome traces; the
+named program ranges in a CPU `torch.profiler` trace of the mapper, the
+tracker and global BA; the MFU tool's constants and raster term against
+scripts/mfu.py read with `ast`; and, under `slow`, the tools' whole runs
+at small sizes on the CPU. No JAX."""
 
 import ast
 from pathlib import Path
@@ -40,10 +40,10 @@ def test_busy_is_the_union_over_two_overlapping_streams():
                "tid": 7, "ts": 500, "dur": 10}]
     # union: [0, 200) + [300, 400) + [500, 510) = 310 us; the sum of the
     # durations would be 390
-    assert bc.busy_union_ms(events) == pytest.approx(0.310)
+    assert profiling.busy_union_ms(events) == pytest.approx(0.310)
     assert sum(e["dur"] for e in events if profiling.is_device(e)) == 390
     assert bc.device_span_ms(events) == pytest.approx(0.510)
-    assert bc.busy_union_ms([]) == 0.0
+    assert profiling.busy_union_ms([]) == 0.0
 
 
 def test_program_time_by_gpu_user_annotation():

@@ -129,7 +129,10 @@ def test_dp_train_loop_dp4_matches_jax(n_valid, dp4_group, cpu_devices):
     surfel: on the same state after 3 iterations the packages render it
     at depth 156.89 (port) and 154.61 (JAX), and their single-process
     losses on that keyframe part by 0.8 % (0.27333 against 0.27111), the
-    dp metric by 0.3 %. The call is digest-checked across the ranks."""
+    dp metric by 0.3 %. That is f32 rounding of an intersection whose
+    condition number is 9.18e4, the same formula in both packages
+    (tests/test_torch_edge_on_depth.py pins it). The call is
+    digest-checked across the ranks."""
     viz, _ = make_viz_out(np.random.default_rng(11), n_kf=4, H=H, W=W)
     (js, jo, jb), (ts, to, tb) = _seeded(viz)
     jb = jb._replace(n_valid=jnp.asarray(n_valid, jnp.int32))

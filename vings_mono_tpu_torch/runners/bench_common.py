@@ -352,27 +352,6 @@ def timed_ms(fn, device, n=3, warm=1):
 
 
 # ---- traces (`utils.profiling.trace` / `load_trace`) ----------------
-def busy_union_ms(events):
-    """Device busy time (ms) as the union of the device events'
-    intervals over every device and stream: two overlapping kernels on
-    two streams count once, where a sum of their durations counts
-    both."""
-    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                for e in events if is_device(e))
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in iv:
-        if cur_s is None:
-            cur_s, cur_e = s, e
-        elif s <= cur_e:
-            cur_e = max(cur_e, e)
-        else:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-    if cur_s is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
-
-
 def device_span_ms(events):
     """First device event's start to the last one's end, ms."""
     dev = [e for e in events if is_device(e)]

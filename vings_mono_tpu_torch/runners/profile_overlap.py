@@ -12,7 +12,7 @@ overlapped pass over n_meas frames, then the next n_meas frames under
 `output/profile_overlap/`), and reports from the trace:
 - the wall time of the section;
 - the device's busy time as the UNION of the device events' intervals
-  over both streams (`bench_common.busy_union_ms`: two kernels that
+  over both streams (`utils.profiling.busy_union_ms`: two kernels that
   overlap on the tracker's and the mapper's streams count once), its
   span and the idle share of the wall;
 - busy and idle ms per frame;
@@ -30,10 +30,11 @@ import argparse
 import json
 import os
 
-from ..utils.profiling import device_ms_by_name, load_trace, trace
-from .bench_common import (bench_overrides, busy_union_ms, device_name,
-                           device_span_ms, load, make_frame, overlapped,
-                           program_ms, warm_pipeline)
+from ..utils.profiling import (busy_union_ms, device_ms_by_name,
+                               load_trace, trace)
+from .bench_common import (bench_overrides, device_name, device_span_ms,
+                           load, make_frame, overlapped, program_ms,
+                           warm_pipeline)
 from .eval_all import card_line
 from .eval_common import add_device_flag
 

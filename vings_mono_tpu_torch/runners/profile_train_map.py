@@ -95,15 +95,22 @@ def main(argv=None, extra=None, height=240, width=432, iters=ITERS):
             run()
             sync(device)
     rows = rows_of(prof, cuda, args.targets)
+    busy = None
+    if cuda:
+        from ..utils.profiling import device_time, profile_events
+        busy, _ = device_time(profile_events(prof))
     print(f"on {device_name(device)} [{card_line()}]: train_loop "
-          f"iters={iters}, self {'device' if cuda else 'CPU'} ms")
+          f"iters={iters}, self {'device' if cuda else 'CPU'} ms"
+          + (f"; device busy {busy:.2f} ms (kernels, memcpy, memset)"
+             if cuda else ""))
     for name, ms, n, frames in rows:
         print(f"==== {name}: {ms:.2f} ms, {n} calls")
         for f in frames:
             print(f"    {f}")
-    print(json.dumps({"device": device_name(device), "rows": [
-        {"op": name, "self_ms": ms, "calls": n, "frames": frames}
-        for name, ms, n, frames in rows]}), flush=True)
+    print(json.dumps({
+        "device": device_name(device), "device_busy_ms": busy,
+        "rows": [{"op": name, "self_ms": ms, "calls": n, "frames": frames}
+                 for name, ms, n, frames in rows]}), flush=True)
     return rows
 
 

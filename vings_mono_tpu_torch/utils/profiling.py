@@ -9,7 +9,10 @@ which of the two it is.
 `trace` records a `torch.profiler` trace (CPU and, where there is a card,
 CUDA activity, every thread) as a chrome trace; `load_trace` reads it
 back, `device_events` sums its device events (kernels, memcpy, memset)
-by name. `count_flops` counts a call's FLOPs with
+by name. `device_time` is the one reader of device time: it counts those
+events alone, as a union of intervals over every stream, and never the
+program ranges (`record_function`), which the profiler also reports with
+a device time. `count_flops` counts a call's FLOPs with
 `torch.utils.flop_counter.FlopCounterMode`."""
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import glob
 import gzip
 import json
 import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -117,6 +121,52 @@ def device_ms_by_name(events):
             ms, n = agg.get(e["name"], (0.0, 0))
             agg[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
     return agg
+
+
+def busy_union_ms(events):
+    """Device busy time (ms) as the union of the device events'
+    intervals over every device and stream: two overlapping kernels on
+    two streams count once, where a sum of their durations counts
+    both."""
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                for e in events if is_device(e))
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in iv:
+        if cur_s is None:
+            cur_s, cur_e = s, e
+        elif s <= cur_e:
+            cur_e = max(cur_e, e)
+        else:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+    if cur_s is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def profile_events(prof):
+    """The chrome-trace events of a finished `torch.profiler.profile`
+    (kept on it: a profile exports its trace once)."""
+    if getattr(prof, "chrome_events", None) is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                prof.chrome_events = json.load(f)["traceEvents"]
+    return prof.chrome_events
+
+
+def device_time(events):
+    """(busy ms, rows) of a chrome trace's device work: busy is the union
+    of the kernel, memcpy and memset intervals over every device and
+    stream (`busy_union_ms`); rows are (total ms, count, name) of those
+    events by name, largest first. A program range (`record_function`,
+    category `gpu_user_annotation` on the device, `user_annotation` on
+    the host) spans its kernels and is not counted: it is no device work
+    of its own."""
+    rows = sorted(((ms, n, name) for name, (ms, n)
+                   in device_ms_by_name(events).items()), reverse=True)
+    return busy_union_ms(events), rows
 
 
 def device_events(trace_dir):
