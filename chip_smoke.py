@@ -123,8 +123,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      `runners.run_multiprocess.run`: frames/s beside (a), windows mapped
      and dropped, the tracker against (b), the .ply, the TF32 flags equal
      before and after; (d) the mobile workers of
-     `run_multiprocess_mobile` on 20 frames from a feeder thread in the
-     server's place, one finite render per mapped window; (e) the DROID
+     `run_multiprocess_mobile` behind the WebsocketServer
+     (profile_configs.py's F8 at its fewest frames:
+     configs/pocket/pocket_scene.yaml, the phone's 720x1280 JPEG frames
+     with the EXIF time and IMU JSON rows sent over a websocket on
+     127.0.0.1, or in process where `websockets` is missing): every frame
+     decoded and tracked, one finite render per mapped window, the newest
+     sent at each of the server's turns, the imu.csv rows, both kernels on
+     every training iteration and against their plain twins on its final
+     map; (e) the DROID
      trainer: one clip's loss and gradients card against CPU, 5 steps of
      `runners.train_droid`'s loop from the repository's weights (s/step,
      peak memory, losses) and the checkpoint loaded back bitwise; then
@@ -175,7 +182,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      same map (the forward's shared memory above the 48 KB default),
      with their times at both chunks;
  20. the shipped configuration families the card had not run, through
-     `runners.run.run` at their committed configurations' full widths
+     their entry points at their committed configurations' full widths
      (profile_configs.py's writers and `run_family`): F1
      configs/waymo/nerfslam/Scene01.yaml (vo_nerfslam, 1280x1920 JPEGs ->
      344x616), F2 configs/kitti360/unsync/kitti360_2013_05_28_drive_0000.yaml
@@ -184,20 +191,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      360x640), F4 configs/hierarchical/smallcity.yaml (vo with the npz
      metric prior; 690x1024 -> 344x616), F5
      configs/kitti/sync/kitti_2011_10_03_drive_0027_LC.yaml (vio with loop
-     closure; 376x1241 -> 344x616), each on a folder of the synthetic3d
-     room written in its dataset module's layout, at the fewest frames
-     that map two windows (F2 needs two rollups; F5 runs to its first
-     loop calls): two windows, both kernels on every training iteration,
-     finite poses and map, both kernels against their plain twins on the
-     final map under the newest mapped keyframe's camera whose depths
-     were kept. F5 makes no loop attempt here: its newest keyframe (~18)
-     is younger than the looper's min_history (35), and over a run long
-     enough (profile_configs.py, 96 frames) its VIO positions run away
-     after VI init, whose alignment fails or mis-scales on these poses in
-     both packages (ROADMAP.md's recorded divergences), so no keyframe
-     falls within the search radius. The detector is called
-     once directly on the final state instead (SuperPoint, LightGlue, the
-     map render and PnP at 344x616), and the stage it reached is printed.
+     closure; 376x1241 -> 344x616), F6 configs/waymo/Scene03.yaml (vo with
+     the npz prior, pose refinement fed back to the tracker, vis;
+     720x1280 -> 344x616), F7 configs/pocket/pocket_scene.yaml through
+     `runners.run_mobile.run` (vo, storage, a .ply every 10 frames;
+     720x1280 -> 344x616; F8, the same configuration through the live
+     pipeline, is phase 15d), each on a
+     folder of the synthetic3d room written in its dataset module's
+     layout, at the fewest frames that map two windows (F2 needs two
+     rollups; F5 runs to its first loop calls): two windows, both kernels
+     on every training (and F6's every refinement) iteration, finite poses
+     and map, both kernels against their plain twins on the final map
+     under the newest mapped keyframe's camera whose depths were kept;
+     F6's refinement holding each window's pose error, F7's two map
+     .ply files. F5 makes no loop attempt here: its newest
+     keyframe (~18) is younger than the looper's min_history (35), and
+     over a run long enough (profile_configs.py, 96 frames) its VIO
+     positions run away after VI init, whose alignment fails or
+     mis-scales on these poses in both packages (ROADMAP.md's recorded
+     divergences), so no keyframe falls within the search radius. The
+     detector is called once directly on the final state instead
+     (SuperPoint, LightGlue, the map render and PnP at 344x616), and the
+     stage it reached is printed.
 The profiled phases (6, 7, 8, 10) read device time through
 `utils.profiling.device_time` (kernels, memcpy and memset only, busy as
 a union over streams) and fail where busy exceeds wall.
@@ -207,8 +222,8 @@ replay 2 -> 1 window on one card (profile_multicard.py keeps 2); phase
 14's run 30 -> 20 frames, its session resumed from frame 10, not 20;
 phase 18's eval_long_run 48 -> 32 frames and eval_track_long 24 -> 16;
 15e's trainer and recipe loops 10 -> 5 steps; 17a's timed steps 3 -> 2.
-Phases 18 and 20 run in a worker process (`--worker`, started after
-phase 11 and joined after phase 15) beside phases 12-15, whose walls and
+Phases 9, 18 and 20 run in a worker process (`--worker`, started after
+phase 8 and joined after phase 15) beside phases 11-15, whose walls and
 stage times hold its share of the card and the host; the profiled and
 timed phases (5-8, 10, 16, 17, 19) run alone. Phase 20 writes the next
 family's folder while the current one runs.
@@ -3108,7 +3123,6 @@ def metric_session_phase(args, tk):
 
 KITTI_FRAMES = 30           # frames of the written kitti_sync folder
 KITTI_DT = 0.1              # KITTI's 10 Hz camera
-MOBILE_FRAMES = 20          # frames fed to the mobile workers
 TRAIN_STEPS = 5             # steps of the trainer's loop
 TRAIN_UNROLL = 8            # train_droid's --num-steps default
 # card vs CPU on one training clip: the loss to 1e-4 relative; each
@@ -3263,18 +3277,15 @@ def seen_camera(mapper, cams, tag="phase 15a"):
 def kitti_folder_phase(args, tk):
     """Phase 15a-d, this slice's main path: a written kitti_sync folder
     through runners.run, run_tracking, run_multiprocess and the mobile
-    workers. Returns the launch counts of 15a, 15c and 15d and the
-    kernels' largest errors on 15a's final map."""
-    import queue
-    import threading
+    workers (15d: behind the server, profile_configs.py's F8). Returns
+    the launch counts of 15a, 15c and 15d and the kernels' largest errors
+    on 15a's and 15d's final maps."""
     import torch
-    import cv2
+    import profile_configs as pc
     from vings_mono_tpu_torch.datasets import base as ds_base
     from vings_mono_tpu_torch.runners import evaluate
     from vings_mono_tpu_torch.runners import run as run_mod
-    from vings_mono_tpu_torch.runners import (run_multiprocess,
-                                              run_multiprocess_mobile,
-                                              run_tracking)
+    from vings_mono_tpu_torch.runners import run_multiprocess, run_tracking
     smi = nvidia_smi()
     root = OUT / "kitti"
     folder = root / "folder"
@@ -3401,40 +3412,17 @@ def kitti_folder_phase(args, tk):
         check(cnt > 0, f"phase 15c: {name} never launched")
     del tracker_b, tracker_c, mapper_c
 
-    # ---- 15d: the mobile workers, a feeder thread in the server's place
-    s2t, m2s = queue.Queue(), queue.Queue()
-    meta = np.loadtxt(folder / "metadata/camstamp.txt", dtype=str)
-
-    def feeder():
-        for t, name in meta[:MOBILE_FRAMES]:
-            bgr = cv2.imread(str(folder / "image_02/data" / name))
-            s2t.put({"timestamp": float(t),
-                     "rgb": bgr[..., ::-1].astype(np.float32) / 255.0})
-        s2t.put(None)
-    reset()
-    t0 = time.perf_counter()
-    workers, results, mstats = run_multiprocess_mobile.start_workers(
-        cfg, s2t, m2s)
-    feed = threading.Thread(target=feeder, daemon=True)
-    feed.start()
-    workers.join()
-    feed.join()
-    wall_d = time.perf_counter() - t0
-    launch_d = launches()
-    renders = []
-    while not m2s.empty():
-        renders.append(m2s.get_nowait())
-    ok = [r.shape == (h, w, 3) and bool(np.isfinite(r).all())
-          for r in renders]
-    print(f"phase 15d mobile workers [{smi}]: {mstats['frames']} frames "
-          f"in {wall_d:.1f} s, windows {mstats['windows']} packaged, "
-          f"{mstats['mapped']} mapped, {mstats['dropped']} dropped; "
-          f"{len(renders)} renders, {sum(ok)} finite ({h}, {w}, 3); "
-          f"launches {launch_d}", flush=True)
-    check(mstats["frames"] == MOBILE_FRAMES, "phase 15d: frames lost")
-    check(len(renders) == mstats["mapped"] >= 1 and all(ok),
-          "phase 15d: not one finite render per mapped window")
-    del results
+    # ---- 15d: the mobile workers behind the server, fed the phone's
+    # messages: profile_configs.py's F8 at its fewest frames
+    phone = pc.FAMILIES["F8"]
+    rec = pc.run_family(phone, phone.smoke_frames, OUT / "phone", DEVICE,
+                        args.seed, tag="phase 15d F8")
+    launch_d = rec["launches"]
+    errs = [max(a, b) for a, b in zip(errs, (
+        rec["max_abs_err"]["rasterize_forward"],
+        rec["max_abs_err"]["rasterize_backward"],
+        rec["max_err_over_scale"]["rasterize_forward"],
+        rec["max_err_over_scale"]["rasterize_backward"]))]
     return {"a": launch_a, "c": launch_c, "d": launch_d}, errs
 
 
@@ -4560,19 +4548,22 @@ def bench_phase(args, tk):
 # ---------------------------------------------------------------------------
 
 def families_phase(args):
-    """Phase 20: profile_configs.py's five families (F1 Waymo vo_nerfslam,
-    F2 KITTI-360 vio + v0_kitti360, F3 RTG, F4 Hierarchical + npz prior,
-    F5 KITTI loop closure) through runners.run.run at their committed
+    """Phase 20: profile_configs.py's families but F8, which is phase
+    15d (F1 Waymo vo_nerfslam, F2 KITTI-360 vio + v0_kitti360, F3 RTG, F4
+    Hierarchical + npz prior, F5 KITTI loop closure, F6 Waymo npz prior +
+    refine + vis, F7 pocket through run_mobile) through their entry
+    points at their committed
     configurations' full widths, each on a folder written in its dataset
     module's layout, at the fewest frames that map two windows (F5: that
     reach its first loop calls; an attempt needs min_history 35
     keyframes, which these frames do not make, so the loop detector is
     then called directly on the final state).
     `profile_configs.run_family` checks each run (two windows, both
-    kernels on every training iteration, finite poses and map) and holds
-    both kernels against their plain twins on its final map. A thread
-    writes the next family's folder while one runs. Returns each
-    family's launches and the kernels' largest errors."""
+    kernels on every training and refinement iteration, finite poses and
+    map; F6's refined windows, F7's .ply files) and holds both kernels
+    against their plain twins on its
+    final map. A thread writes the next family's folder while one runs.
+    Returns each family's launches and the kernels' largest errors."""
     from concurrent.futures import ThreadPoolExecutor
     import profile_configs as pc
     launches, errs = {}, [0.0, 0.0, 0.0, 0.0]
@@ -4584,9 +4575,11 @@ def families_phase(args):
         cfg = pc.family_cfg(fam, root / key / "folder", root / key, DEVICE)
         return pc.write_folder(fam, root / key / "folder", fam.smoke_frames,
                                cfg, workers=6)
+    keys = [k for k in pc.FAMILIES if k != "F8"]
     with ThreadPoolExecutor(1) as writer:
-        written = {key: writer.submit(write, key) for key in pc.FAMILIES}
-        for key, fam in pc.FAMILIES.items():
+        written = {key: writer.submit(write, key) for key in keys}
+        for key in keys:
+            fam = pc.FAMILIES[key]
             t0 = time.perf_counter()
             rec = pc.run_family(fam, fam.smoke_frames, root / key, DEVICE,
                                 args.seed, tag=f"phase 20 {key}",
@@ -4599,6 +4592,9 @@ def families_phase(args):
                       "phase 20 F5: the looper never ran")
                 check(bool(rec["loop_attempts"] or rec.get("direct_detect")),
                       "phase 20 F5: the loop detector never ran")
+            if key == "F6":
+                check(rec["refine_iters"] > 0, "phase 20 F6: nothing was "
+                      "refined")
             launches[key] = rec["launches"]
             got = [rec["max_abs_err"]["rasterize_forward"],
                    rec["max_abs_err"]["rasterize_backward"],
@@ -4611,15 +4607,19 @@ def families_phase(args):
 
 
 def run_worker(args):
-    """Phases 18 and 20 in a process of their own (`--worker PATH`), which
-    main() starts after phase 11 and joins after phase 15, so that they
-    run beside phases 12-15: the card and the host's cores have room for
-    both, and the script keeps inside its time. No profiled or timed phase
-    (5-8, 10, 16, 17, 19) runs beside it. Writes their launches and the
-    kernels' largest errors to PATH as JSON."""
+    """Phases 9, 18 and 20 in a process of their own (`--worker PATH`),
+    which main() starts after phase 8 and joins after phase 15, so that
+    they run beside phases 11-15: the card and the host's cores have room
+    for both, and the script keeps inside its time. No profiled or timed
+    phase (5-8, 10, 16, 17, 19) runs beside it. Writes their launches and
+    the kernels' largest errors to PATH as JSON."""
     from vings_mono_tpu_torch.utils.device import resolve_device
     resolve_device(DEVICE)
     from vings_mono_tpu_torch.ops.rasterizer import tile_kernel as tk
+    t0 = time.perf_counter()
+    smoke_launches, smoke_errs = smoke_vio_phase(args, tk)
+    print(f"chip_smoke worker: phase 9 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     eval_launches, eval_errs = eval_phase(args, tk)
     print(f"chip_smoke worker: phase 18 in {time.perf_counter() - t0:.1f} s",
@@ -4629,12 +4629,13 @@ def run_worker(args):
     print(f"chip_smoke worker: phase 20 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     pathlib.Path(args.worker).write_text(json.dumps({
+        "smoke_vio_launches": smoke_launches, "smoke_vio_errs": smoke_errs,
         "eval_launches": eval_launches, "eval_errs": eval_errs,
         "family_launches": family_launches, "family_errs": family_errs}))
 
 
 def start_worker(args):
-    """The worker process of phases 18 and 20, its output to a log."""
+    """The worker process of phases 9, 18 and 20, its output to a log."""
     import subprocess
     out = OUT / "worker.json"
     out.unlink(missing_ok=True)
@@ -4644,8 +4645,9 @@ def start_worker(args):
          str(args.seed), "--worker", str(out)], cwd=str(ROOT),
         stdout=log, stderr=subprocess.STDOUT)
     log.close()
-    print(f"chip_smoke: phases 18 and 20 run in worker process {proc.pid} "
-          f"beside phases 12-15 (its output follows phase 15)", flush=True)
+    print(f"chip_smoke: phases 9, 18 and 20 run in worker process "
+          f"{proc.pid} beside phases 11-15 (its output follows phase 15)",
+          flush=True)
     return proc, out
 
 
@@ -4659,7 +4661,7 @@ def join_worker(proc, out, timeout):
         proc.wait()
         raise
     print((OUT / "worker.log").read_text(), end="", flush=True)
-    check(rc == 0 and out.is_file(), f"the worker of phases 18 and 20 "
+    check(rc == 0 and out.is_file(), f"the worker of phases 9, 18 and 20 "
           f"exited {rc}")
     return json.loads(out.read_text())
 
@@ -4868,16 +4870,14 @@ def main(argv=None):
     # ---- 8. the VIO + storage slice (with vis)
     vio_launches = vio_slice(args, tk)
     lap("phase 8")
-    # ---- 9. smoke_vio.yaml as committed: the slice's main path
-    smoke_launches, smoke_errs = smoke_vio_phase(args, tk)
-    lap("phase 9")
-    # ---- 11. the mapper's options on phase 4's replay
-    opt_launches = mapper_options_phase(
-        args, tk, cfg, float(np.mean(kf_ms)), win_dir, args.seed)
-    lap("phase 11")
-    # ---- 18 and 20 run in a worker process beside phases 12-15
+    # ---- 9. smoke_vio.yaml as committed, 18 and 20 run in a worker
+    # process beside phases 11-15
     worker, worker_out = start_worker(args)
     try:
+        # ---- 11. the mapper's options on phase 4's replay
+        opt_launches = mapper_options_phase(
+            args, tk, cfg, float(np.mean(kf_ms)), win_dir, args.seed)
+        lap("phase 11")
         # ---- 12. smoke.yaml as committed: loop closure and dynamic masks
         all_launches, all_errs, end, smoke_stats = smoke_phase(args, tk)
         lap("phase 12")
@@ -4899,14 +4899,16 @@ def main(argv=None):
         train_phase(args)
         recipe_phase(args)
         lap("phase 15e")
-        # ---- 18. the evaluation entry points and 20. the shipped
-        # configuration families at full width, from the worker
+        # ---- 9. smoke_vio.yaml, 18. the evaluation entry points and 20.
+        # the shipped configuration families at full width, from the worker
         got = join_worker(worker, worker_out, timeout=1200)
-        lap("the wait for the worker (phases 18 and 20)")
+        lap("the wait for the worker (phases 9, 18 and 20)")
     finally:
         if worker.poll() is None:
             worker.kill()
             worker.wait()
+    smoke_launches = got["smoke_vio_launches"]
+    smoke_errs = got["smoke_vio_errs"]
     eval_launches, eval_errs = got["eval_launches"], got["eval_errs"]
     family_launches = got["family_launches"]
     family_errs = got["family_errs"]

@@ -24,7 +24,7 @@ N = 3
 
 @pytest.mark.parametrize("key", list(pc.FAMILIES))
 def test_writer_feeds_the_family_loader(key, tmp_path):
-    pytest.importorskip("cv2")
+    cv2 = pytest.importorskip("cv2")
     fam = pc.FAMILIES[key]
     cfg = pc.family_cfg(fam, tmp_path / "folder", tmp_path / "out", "cpu",
                         {"frontend": {"image_size": [16, 24]}})
@@ -45,8 +45,25 @@ def test_writer_feeds_the_family_loader(key, tmp_path):
         assert np.allclose(ds.c2i, np.eye(4))
     if cfg.get("use_metric"):
         from vings_mono_tpu_torch.models.metric_depth import MetricDepth
-        depth = MetricDepth(cfg).predict(pkt["rgb"], pkt["intrinsic"])
-        assert depth.shape == (16, 24) and (depth > 0).all()
+        # the npz backend matches files to frames in sorted order: the
+        # depth files sort as the frames do
+        root = tmp_path / "folder"
+        depths = sorted((root / "metric_depth").glob("*.np[yz]"))
+        assert [f.stem for f in depths] == [
+            pathlib.Path(f).stem for f in ds.rgb_files]
+        prior = MetricDepth(cfg)
+        for k in range(N):
+            depth = prior.predict(pkt["rgb"], pkt["intrinsic"])
+            assert depth.shape == (16, 24) and (depth > 0).all()
+            np.testing.assert_allclose(depth, np.clip(cv2.resize(
+                np.load(depths[k]), (24, 16),
+                interpolation=cv2.INTER_NEAREST), 0, prior.d_max))
+    if fam.layout == "pocket":
+        # the phone's capture time in EXIF DateTime, as the server reads it
+        from PIL import Image
+        for k, f in enumerate(ds.rgb_files):
+            assert float(Image.open(f).getexif()[306]) == pytest.approx(
+                k * pc.PHONE_DT, abs=1e-6)
     if cfg.get("use_loop"):
         for k in ("superpoint_weights", "lightglue_weights"):
             assert os.path.isfile(cfg["looper"][k])

@@ -45,6 +45,11 @@ SMALL_REASONS = [
      "tile kernels)"),
     ("mapper.interpret (JAX only)", "-> true", "the Pallas kernels run "
      "interpreted on the CPU; the port reads no such key"),
+    ("vis.map_size, vis.bev_size (the families with use_vis)",
+     f"480x640, 320x320 -> [{H}, {W}]", "the map and BEV renders at the "
+     "tracked size, which JAX has compiled for the keyframe panel and "
+     "eval_psnr already: at their own sizes each is one more compile of the "
+     "interpreted kernels (~5 s each of a family's ~100 s alone)"),
 ]
 # poses: test_torch_runners.py test_run_tracking_as_jax's tolerance
 POSE_FRAC = 0.1
@@ -82,6 +87,8 @@ def small_overrides(family, extra=None):
                    "points_first_frame": 600, "kf_capacity": 8},
         "training_args": {"iters": ITERS},
     }
+    if c.get("use_vis"):
+        over["vis"] = {"map_size": [H, W], "bev_size": [H, W]}
     if extra:
         for k, v in extra.items():
             over.setdefault(k, {}).update(v)
@@ -92,8 +99,9 @@ def run_both(key, tmp, n, extra=None, pace=None):
     """Both packages' run on one folder of n frames. Returns
     {"jax": ..., "torch": ...} of the keyframe timestamps and c2ws, the
     first mapped window's arrays, the train PSNR of every mapped window,
-    the windows mapped, eval_psnr and the loop detector's attempt stages
-    (None without a looper)."""
+    the windows mapped, eval_psnr, the loop detector's attempt stages
+    (None without a looper) and, with use_refine, the first refined
+    window's poses before and after refinement (else None)."""
     fam = pc.FAMILIES[key]
     folder = tmp / "folder"
     over = pc.family_overrides(fam, folder, tmp / "torch", "cpu",
@@ -108,7 +116,7 @@ def run_both(key, tmp, n, extra=None, pace=None):
     for lib, mod, ev, cfg, at in (
             ("jax", j_run_mod, j_evaluate, jcfg, 3),
             ("torch", t_run_mod, t_evaluate, tcfg, 4)):
-        got = {"viz": None, "psnr": []}
+        got = {"viz": None, "psnr": [], "refined": None}
         build = mod.build
 
         def rec_build(*a, **k):
@@ -117,6 +125,12 @@ def run_both(key, tmp, n, extra=None, pace=None):
             return built
 
         def on_frame(idx, tracker, mapper, viz_out, got=got):
+            refined = getattr(mapper, "refined_poses", None)
+            if viz_out is not None and refined is not None \
+                    and got["refined"] is None:
+                k = int(pc.host(viz_out["n_valid"]))
+                got["refined"] = {"before": pc.host(viz_out["poses"])[:k],
+                                  "after": pc.host(refined)[:k]}
             if viz_out is not None and mapper.time_idx > len(got["psnr"]):
                 got["psnr"].append(float(mapper.last_metrics["psnr"]))
                 if got["viz"] is None:
@@ -141,7 +155,8 @@ def run_both(key, tmp, n, extra=None, pace=None):
                     "windows": mapper.time_idx,
                     "eval_psnr": float(ev.eval_psnr(mapper, tracker)),
                     "loop": None if looper is None else
-                    [t["stage"] for t in looper.detector.traces]}
+                    [t["stage"] for t in looper.detector.traces],
+                    "refined": got["refined"]}
     return out
 
 

@@ -22,6 +22,8 @@ import numpy as np
 from .run_multiprocess import BACKLOG, Workers
 
 POLL_S = 0.5   # how often a waiting worker looks at the stop flag
+SERVER_QUEUE = 32   # decoded frames waiting for the tracker
+RENDER_QUEUE = 4    # renders waiting for the server's sender
 
 
 def put_latest(q, item):
@@ -135,8 +137,8 @@ def main(argv=None):
     cfg = load_config(args.config)
     save_dir = make_run_dir(cfg, "mobile_")
 
-    s2t = queue.Queue(maxsize=32)
-    m2s = queue.Queue(maxsize=4)
+    s2t = queue.Queue(maxsize=SERVER_QUEUE)
+    m2s = queue.Queue(maxsize=RENDER_QUEUE)
     workers, _, _ = start_workers(cfg, s2t, m2s, args.device)
 
     async def until_a_worker_ends():
